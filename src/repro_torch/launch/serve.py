@@ -1,0 +1,131 @@
+"""Serving launcher on the port's continuous-batching engine; port of
+``repro/launch/serve.py`` without the flags of unported features.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
+
+Generates a mixed-length synthetic workload with random weights, streams
+tokens through the engine, and reports throughput plus per-token latency.
+Runs on the card (``--device cuda``, the default; it fails when no card is
+visible) or, asked explicitly, on the CPU with the plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.arch.model_zoo import build
+from repro_torch.configs.registry import get
+from repro_torch.serve.engine import (
+    Engine,
+    KernelConfig,
+    KVConfig,
+    Request,
+    SchedulerConfig,
+    ServeConfig,
+    resolve_device,
+)
+
+
+def make_workload(cfg, n: int, max_new: int, seed: int = 0) -> list[Request]:
+    """The reference's ``make_workload``, draw for draw (same numpy
+    generator calls), so both engines serve identical requests."""
+    rng = np.random.default_rng(seed)
+    return [
+        Request(
+            rng.integers(0, cfg.vocab, rng.integers(3, 16)).astype(np.int32),
+            max_new=int(rng.integers(max(2, max_new // 4), max_new + 1)),
+            request_id=i,
+        )
+        for i in range(n)
+    ]
+
+
+def latency_summary(stamps: dict[int, list[float]]) -> tuple[float, float]:
+    """p50/p95 of the gaps between consecutive token stamps of each
+    request (the first gap is measured from the start of the run)."""
+    deltas = sorted(
+        b - a for ts in stamps.values() for a, b in zip([0.0] + ts[:-1], ts)
+    )
+    if not deltas:
+        return 0.0, 0.0
+    return deltas[len(deltas) // 2], deltas[min(len(deltas) - 1, int(len(deltas) * 0.95))]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-360m-smoke")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prefill-bucket", type=int, default=16)
+    ap.add_argument("--matmul", choices=("xla", "pallas"), default="xla",
+                    help="'pallas' routes projections through the "
+                         "hand-written GEMM kernel")
+    ap.add_argument("--attention", choices=("flash", "xla"), default="flash",
+                    help="decode attention: the ragged decode kernel or "
+                         "the masked dense oracle")
+    ap.add_argument("--kv-layout", choices=("contiguous", "paged"),
+                    default="contiguous")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="paged: tokens per physical KV block")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="paged: pool blocks per layer incl. the sink")
+    ap.add_argument("--no-prefix-sharing", action="store_true")
+    ap.add_argument("--max-waiting", type=int, default=None)
+    ap.add_argument("--stall-patience", type=int, default=64)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get(args.arch)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = build(cfg).init(gen, device)
+    scfg = ServeConfig(
+        max_len=args.max_len, temperature=args.temperature, seed=args.seed,
+        scheduler=SchedulerConfig(
+            batch=args.slots, prefill_bucket=args.prefill_bucket,
+            max_waiting=args.max_waiting, stall_patience=args.stall_patience,
+        ),
+        kv=KVConfig(
+            layout=args.kv_layout, block_size=args.block_size,
+            num_blocks=args.num_blocks,
+            prefix_sharing=not args.no_prefix_sharing,
+        ),
+        kernel=KernelConfig(matmul=args.matmul, attention=args.attention),
+    )
+    reqs = make_workload(cfg, args.requests, args.new_tokens, args.seed)
+    eng = Engine(cfg, params, scfg, device=device)
+
+    stamps: dict[int, list[float]] = {}
+    t0 = time.perf_counter()
+
+    def on_token(rid, tok, idx, done):
+        stamps.setdefault(rid, []).append(time.perf_counter() - t0)
+
+    outs = eng.run(reqs, on_token=on_token)
+    dt = time.perf_counter() - t0
+    total_new = sum(len(o) for o in outs)
+    p50, p95 = latency_summary(stamps)
+    print(
+        f"[continuous/{device.type}] served {len(reqs)} requests, {total_new} "
+        f"tokens, {dt:.2f}s ({total_new / dt:.1f} tok/s, per-token "
+        f"p50={p50 * 1e3:.1f}ms p95={p95 * 1e3:.1f}ms)"
+    )
+    counts: dict[str, int] = {}
+    for o in outs:
+        counts[o.status.value] = counts.get(o.status.value, 0) + 1
+    print("  statuses: " + ", ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+    for i, o in enumerate(outs):
+        why = f" ({o.reason})" if o.reason else ""
+        print(f"  req{i} [{o.status.value}{why}]: {o.tolist()}")
+
+
+if __name__ == "__main__":
+    main()
