@@ -21,13 +21,23 @@ result.  Phases, any failure of which exits non-zero:
    (contiguous and paged KV, each with ``matmul="xla"`` and ``"pallas"``).
    Each run's kernel launch counts are set to 0 just before it and read
    just after; paged tokens must equal contiguous tokens;
-4. check one full-width decode step through the kernels against the plain
+4. the SDC defense (``KernelConfig(abft=...)``) at full width, paged KV:
+   (a) the phase-3 workload with ``matmul="pallas"``, ``abft="checksum"``
+   must serve the ABFT-off tokens with no detection, through the checksum
+   GEMM, with its step profile beside ABFT off; (b) the weight and KV-pool
+   fingerprints must repeat bit for bit 100 times; (c) seeded SDC episodes
+   in both modes (``max_len`` 256, 3 slots) must detect and retry every
+   compute fault once, quarantine exactly the owner of every KV flip, and
+   leave survivors bitwise equal to an unfaulted oracle; (d) a weight flip
+   must raise ``SDCUnlocalizedError`` before anything is emitted;
+5. check one full-width decode step through the kernels against the plain
    path on the card, then print the ``kernels`` summary and, last, the
    ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -73,11 +83,14 @@ from repro_torch.arch.model_zoo import build  # noqa: E402
 from repro_torch.arch import layers as L  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import abft  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_attention as dec  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
-from repro_torch.serve import kvcache  # noqa: E402
+from repro_torch.kernels.matmul import ops as mmops  # noqa: E402
+from repro_torch.serve import chaos, kvcache  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
-    Engine, KernelConfig, KVConfig, Request, SchedulerConfig, ServeConfig,
+    Engine, KernelConfig, KVConfig, Request, SchedulerConfig, SDCUnlocalizedError,
+    ServeConfig,
 )
 
 DEV = torch.device("cuda")
@@ -85,6 +98,7 @@ WRAPPERS = {
     "flash_decode": dec.flash_decode_cuda,
     "flash_decode_paged": dec.flash_decode_paged_cuda,
     "gemm_bf16": mm.matmul_cuda,
+    "gemm_bf16_abft": mm.matmul_abft_cuda,
 }
 KERNEL_INFO = {
     "flash_decode": dict(
@@ -96,7 +110,13 @@ KERNEL_INFO = {
     "gemm_bf16": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
         replaces="src/repro/kernels/matmul/matmul.py:117"),
+    "gemm_bf16_abft": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
+        replaces="src/repro/kernels/matmul/matmul.py:78"),
 }
+# the five projection GEMMs of smollm-360m: (K, N, B transposed)
+GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
+               (2560, 960, False), (960, 49152, True)]
 
 
 def card_line() -> str:
@@ -200,22 +220,22 @@ def check_decode(results: dict) -> None:
     for name, (got, plain_fn, kern_fn, extra_bytes) in cases.items():
         want = plain_fn()
         err = (got.float() - want.float()).abs()
-        # two bf16 ulps at unit scale: both sides sum in fp32 and round
-        # once; they differ in summation order and exp
-        tol = 2e-2 + 2e-2 * want.float().abs()
-        if not bool((err <= tol).all()):
-            fail(f"{name}: max |kernel - plain| = {float(err.max()):.3e} exceeds "
-                 f"2e-2 + 2e-2*|plain|")
+        # bitwise: kernel and plain version sum order-independently (fp64
+        # accumulation, one rounding), which the ABFT fingerprint needs
+        if not torch.equal(got, want):
+            fail(f"{name}: kernel differs from the plain version in "
+                 f"{int((got != want).sum())} elements (max |diff| {float(err.max()):.3e}); "
+                 f"they must be bitwise equal")
         b_ms, b_by = bound_ms(qo_bytes + kv_bytes + extra_bytes, flops)
         results[name] = dict(
-            max_abs_err=float(err.max()), tolerance="2e-2 + 2e-2*|plain|",
+            max_abs_err=float(err.max()), tolerance="bitwise",
             ms=time_ms(kern_fn), plain_ms=time_ms(plain_fn, iters=5),
             library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
             bound_ms=b_ms, bound_by=b_by,
             shape=f"B={B} KV={KV} G={G} d={d} S={S} bs={BS} live_keys={live_keys}",
         )
         print(f"{name}: max_abs_err={results[name]['max_abs_err']:.3e} "
-              f"(tol 2e-2 + 2e-2*|plain|) ms={results[name]['ms']:.4f} "
+              f"(bitwise) ms={results[name]['ms']:.4f} "
               f"plain_ms={results[name]['plain_ms']:.4f} "
               f"library_ms={results[name]['library_ms']:.4f} "
               f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
@@ -225,11 +245,9 @@ def check_gemm(results: dict, prefill_m: int) -> None:
     """The GEMM kernel at the five projection shapes of smollm-360m, at the
     decode M (slots) and a prefill M, against its plain version."""
     g = torch.Generator(device=DEV).manual_seed(2)
-    shapes = [(960, 960, False), (960, 320, False), (960, 2560, False),
-              (2560, 960, False), (960, 49152, True)]
     rows = []
     for M in (SLOTS, prefill_m):
-        for K, N, trans_b in shapes:
+        for K, N, trans_b in GEMM_SHAPES:
             a = torch.randn((M, K), generator=g, device=DEV).bfloat16()
             b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=DEV).bfloat16()
             got = mm.matmul_cuda(a, b, trans_b=trans_b)
@@ -266,6 +284,88 @@ def check_gemm(results: dict, prefill_m: int) -> None:
     )
 
 
+def check_gemm_abft(results: dict, prefill_m: int) -> None:
+    """The checksum GEMM at the five projection shapes, at the decode M of
+    the ABFT path (slots + the checksum row), at M = 17 (past the 16-row
+    tile) and at a prefill M: its product bitwise ``gemm_bf16``'s, both
+    outputs the same bits on a second run, the product within one bf16 ulp
+    of the plain version and the checksums within the ABFT tolerance
+    ``ABFT_ATOL + ABFT_RTOL * (e^T|A|)|B|`` of the plain version's (the
+    verdict's own bound; both sum fp32 in other orders)."""
+    g = torch.Generator(device=DEV).manual_seed(4)
+    rows = []
+    for M in (SLOTS + 1, 17, prefill_m + 1):
+        for K, N, trans_b in GEMM_SHAPES:
+            a = torch.randn((M, K), generator=g, device=DEV).bfloat16()
+            b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=DEV).bfloat16()
+            out, checks = mm.matmul_abft_cuda(a, b, trans_b=trans_b)
+            out2, checks2 = mm.matmul_abft_cuda(a, b, trans_b=trans_b)
+            base = mm.matmul_cuda(a, b, trans_b=trans_b)
+            torch.cuda.synchronize()
+            case = f"gemm_abft {M}x{K}x{N} trans_b={trans_b}"
+            if not torch.equal(out, base):
+                fail(f"{case}: product differs from gemm_bf16's")
+            if not (torch.equal(out2, out) and torch.equal(checks2, checks)):
+                fail(f"{case}: a second run gave other bits")
+            want, want_checks = mm.matmul_abft_plain(a, b, trans_b=trans_b)
+            err = float((out.float() - want.float()).abs().max())
+            tol = 2.0**-7 * float(want.float().abs().max())
+            bm = mm.abft_block_rows(M)
+            nrb = checks.shape[0]
+            a_abs = torch.nn.functional.pad(a.float().abs(), (0, 0, 0, nrb * bm - M))
+            bl = (b.T if trans_b else b).float()
+            scale = a_abs.reshape(nrb, bm, K).sum(1) @ bl.abs()
+            c_err = (checks - want_checks).abs()
+            if err > tol or bool((c_err > abft.ABFT_ATOL + abft.ABFT_RTOL * scale).any()):
+                fail(f"{case}: product err {err:.3e} (tol {tol:.3e}) or checksum err "
+                     f"{float(c_err.max()):.3e} beyond the ABFT tolerance")
+            if bool(mmops.matmul_abft(a, b, trans_b=trans_b)[1]):
+                fail(f"{case}: the verdict flagged a clean product")
+            row = dict(M=M, K=K, N=N, trans_b=trans_b, max_abs_err=err, tolerance=tol,
+                       checks_max_abs_err=float(c_err.max()))
+            if M == SLOTS + 1:
+
+                def lib(a=a, b=b, t=trans_b, nrb=nrb, bm=bm, M=M):
+                    c = (a @ b.T) if t else (a @ b)
+                    pad = torch.nn.functional.pad(c.float(), (0, 0, 0, nrb * bm - M))
+                    return c, pad.reshape(nrb, bm, -1).sum(1)
+
+                b_ms, b_by = bound_ms((M * K + K * N + M * N) * 2 + nrb * N * 4,
+                                      2.0 * M * N * K + M * N)
+                row.update(
+                    ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_abft_cuda(a, b, trans_b=t)),
+                    plain_ms=time_ms(
+                        lambda a=a, b=b, t=trans_b: mm.matmul_abft_plain(a, b, trans_b=t)),
+                    library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                    gemm_bf16_ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)),
+                )
+            rows.append(row)
+            print(f"{case}: max_abs_err={err:.3e} (tol {tol:.3e}) checksum err "
+                  f"{row['checks_max_abs_err']:.3e}" + (
+                      f" ms={row['ms']:.4f} (gemm_bf16 {row['gemm_bf16_ms']:.4f}) "
+                      f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                      f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
+                      if "ms" in row else ""), flush=True)
+    # a row's bits do not depend on M, across the 16 -> 17 tile switch
+    a = torch.randn((17, 960), generator=g, device=DEV).bfloat16()
+    b = torch.randn((960, 2560), generator=g, device=DEV).bfloat16()
+    o16, _ = mm.matmul_abft_cuda(a[:16].contiguous(), b)
+    o17, _ = mm.matmul_abft_cuda(a, b)
+    if not torch.equal(o16, o17[:16]):
+        fail("gemm_abft: rows changed between M = 16 and M = 17")
+    print("gemm_abft: product == gemm_bf16 bitwise, repeat runs bitwise, rows equal "
+          "across the M = 16 -> 17 tile switch", flush=True)
+    dec_rows = [r for r in rows if r["M"] == SLOTS + 1]
+    results["gemm_bf16_abft"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=sum(r["ms"] for r in dec_rows), plain_ms=sum(r["plain_ms"] for r in dec_rows),
+        library_ms=sum(r["library_ms"] for r in dec_rows),
+        bound_ms=sum(r["bound_ms"] for r in dec_rows), bound_by="bytes",
+        shape=f"sum over the five (K,N) projection shapes at M={SLOTS + 1}",
+        cases=rows,
+    )
+
+
 # ------------------------------------------------------------ serve phase --
 
 
@@ -291,13 +391,13 @@ def workload(cfg, seed: int = 0) -> list:
             for i, (p, b) in enumerate(zip(prompts, budgets))]
 
 
-def serve_once(cfg, params, layout: str, matmul: str, reqs: list) -> dict:
+def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str = "off"):
     kv = (KVConfig(layout="paged", block_size=BS) if layout == "paged"
           else KVConfig(decode_block=BS))
     scfg = ServeConfig(
         max_len=MAX_LEN,
         scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16),
-        kv=kv, kernel=KernelConfig(matmul=matmul, attention="flash"),
+        kv=kv, kernel=KernelConfig(matmul=matmul, attention="flash", abft=abft_mode),
     )
     eng = Engine(cfg, params, scfg, device=DEV)
     stamps: dict[int, list[float]] = {}
@@ -333,41 +433,85 @@ def serve_once(cfg, params, layout: str, matmul: str, reqs: list) -> dict:
         return xs[min(len(xs) - 1, int(len(xs) * p))] * 1e3
 
     res = dict(
-        layout=layout, matmul=matmul, tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+        layout=layout, matmul=matmul, abft=abft_mode, tokens=n_tok, wall_s=wall,
+        tok_per_s=n_tok / wall, sdc_detected=eng.stats["sdc_detected"],
         itl_p50_ms=pct(itl, 0.5), itl_p95_ms=pct(itl, 0.95), ttft_p50_ms=pct(ttft, 0.5),
         launches=launches, peak_active=eng.stats["peak_active"],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
-    print(f"serve {layout:10s} matmul={matmul:6s}: {n_tok} tokens in {wall:.3f} s "
+    print(f"serve {layout:10s} matmul={matmul:6s} abft={abft_mode}: {n_tok} tokens in {wall:.3f} s "
           f"= {res['tok_per_s']:.1f} tok/s, ITL p50 {res['itl_p50_ms']:.2f} ms "
           f"p95 {res['itl_p95_ms']:.2f} ms, TTFT p50 {res['ttft_p50_ms']:.1f} ms, "
           f"launches {launches}", flush=True)
-    return res, toks
+    return res, toks, eng
 
 
-def profile_decode(cfg, params, reqs, steps: int = 8) -> dict:
-    """Where a decode step's time goes on the kernel path (contiguous KV,
-    ``matmul="pallas"``): host wall time per step without the profiler,
+class HostTimer:
+    """Host wall time spent inside some functions, by name: wraps each
+    attribute ``obj.name`` in place (undone by :meth:`restore`).  The step
+    is host-bound, so the host time a part of it takes is its cost."""
+
+    def __init__(self, targets: dict):
+        self.ms = {k: 0.0 for k in targets}
+        self._saved = []
+        for key, (obj, name) in targets.items():
+            fn = getattr(obj, name)
+            self._saved.append((obj, name, fn))
+
+            def timed(*a, _fn=fn, _key=key, **kw):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.ms[_key] += (time.perf_counter() - t) * 1e3
+
+            setattr(obj, name, timed)
+
+    def restore(self):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous",
+                   abft_mode: str = "off") -> dict:
+    """Where a decode step's time goes on the kernel path
+    (``matmul="pallas"``): host wall time per step without the profiler,
     then the card's busy time per step from ``torch.profiler`` (the union
-    of the CUDA kernels' intervals) and the kernels that take most of it."""
+    of the CUDA kernels' intervals) and the kernels that take most of it.
+    With ABFT on, also the host time per step inside the attention
+    fingerprint, the checked GEMMs (``AbftTrace.mm`` in all), the verdict
+    op ``ops.matmul_abft`` and the checksum kernel's wrapper."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kv = KVConfig(layout="paged", block_size=BS) if layout == "paged" else KVConfig(decode_block=BS)
     scfg = ServeConfig(
         max_len=MAX_LEN, scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16),
-        kv=KVConfig(decode_block=BS), kernel=KernelConfig(matmul="pallas"),
+        kv=kv, kernel=KernelConfig(matmul="pallas", abft=abft_mode),
     )
     eng = Engine(cfg, params, scfg, device=DEV)
     for r in reqs[:SLOTS]:
         eng.submit(r)
     for _ in range(3):  # admission, then warm decode steps
         eng.step()
+    timer = None
+    if abft_mode != "off":
+        timer = HostTimer({
+            "fingerprint": (abft.AbftTrace, "check_paged_attention"),
+            "checked_gemms": (abft.AbftTrace, "mm"),
+            "verdict_op": (mmops, "matmul_abft"),
+            "checksum_kernel_wrapper": (mmops, "matmul_abft_cuda"),
+        })
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
+    host_parts = None
+    if timer is not None:
+        timer.restore()
+        host_parts = {k: v / steps for k, v in timer.ms.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.step()
@@ -385,16 +529,121 @@ def profile_decode(cfg, params, reqs, steps: int = 8) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     res = dict(
+        layout=layout, abft=abft_mode,
         step_ms=step_ms, device_busy_ms_per_step=busy / steps / 1e3,
         busy_share=busy / steps / 1e3 / step_ms if spans else None,
         top_kernels_ms_per_step={n[:80]: t / steps / 1e3 for n, t in top},
+        host_ms_per_step=host_parts,
     )
-    print(f"decode step (contiguous, pallas, {SLOTS} live rows): {step_ms:.2f} ms wall, "
-          f"card busy {res['device_busy_ms_per_step']:.3f} ms per step "
+    print(f"decode step ({layout}, pallas, abft={abft_mode}, {SLOTS} live rows): "
+          f"{step_ms:.2f} ms wall, card busy {res['device_busy_ms_per_step']:.3f} ms per step "
           f"(share of wall {res['busy_share']})", flush=True)
     for n, t in res["top_kernels_ms_per_step"].items():
         print(f"  {t:.3f} ms/step  {n}")
+    for n, t in (host_parts or {}).items():
+        print(f"  host {t:.2f} ms/step inside {n}")
     return res
+
+
+SDC_MAX_LEN, SDC_SLOTS = 256, 3
+SDC_MIXES = [(1, 1), (2, 1), (1, 2), (0, 1), (2, 0), (1, 1)]  # tests/test_sdc.py:175
+
+
+def sdc_engines(cfg, params, mode: str):
+    """An ABFT engine and its unfaulted oracle (contiguous KV, the paged
+    block size as its decode split), both on the M-invariant GEMM kernel,
+    sampling at temperature 0.7 as the reference's episode tests do."""
+    common = dict(max_len=SDC_MAX_LEN, temperature=0.7, seed=5)
+    eng = Engine(cfg, params, ServeConfig(
+        scheduler=SchedulerConfig(batch=SDC_SLOTS, prefill_bucket=16, stall_patience=6),
+        kv=KVConfig(layout="paged", block_size=BS),
+        kernel=KernelConfig(matmul="pallas", abft=mode), **common), device=DEV)
+    oracle = Engine(cfg, params, ServeConfig(
+        scheduler=SchedulerConfig(batch=SDC_SLOTS, prefill_bucket=16),
+        kv=KVConfig(decode_block=BS), kernel=KernelConfig(matmul="pallas"), **common),
+        device=DEV)
+    return eng, oracle
+
+
+def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) -> dict:
+    """Phase 4, (a)-(d) of the module docstring."""
+    out: dict = {}
+    print("-- (a) the phase-3 workload with abft='checksum'", flush=True)
+    res, toks, eng = serve_once(cfg, params, "paged", "pallas", reqs, abft_mode="checksum")
+    for n, c in res["launches"].items():
+        totals[n] += c
+    if res["launches"]["gemm_bf16_abft"] <= 0:
+        fail("abft serve run: the checksum GEMM was never launched")
+    if res["sdc_detected"]:
+        fail(f"abft serve run: {res['sdc_detected']} detections on a clean run")
+    if toks != off_tokens:
+        fail("abft serve run: tokens differ from the abft-off paged/pallas run")
+    print(f"abft=checksum tokens == abft=off tokens, 0 detections; tokens/s "
+          f"{res['tok_per_s']:.1f} vs {off_run['tok_per_s']:.1f} off, ITL p50/p95 "
+          f"{res['itl_p50_ms']:.2f}/{res['itl_p95_ms']:.2f} ms vs "
+          f"{off_run['itl_p50_ms']:.2f}/{off_run['itl_p95_ms']:.2f} ms off", flush=True)
+    out["serve_abft"] = res
+    out["profile"] = [profile_decode(cfg, params, reqs, layout="paged", abft_mode=m)
+                      for m in ("off", "checksum")]
+
+    print("-- (b) fingerprints repeat bit for bit", flush=True)
+    w0 = abft.weight_sums(eng.params)
+    p0 = eng._pool_sums()
+    same_w = torch.equal(w0, eng._wsums0) and all(
+        torch.equal(abft.weight_sums(eng.params), w0) for _ in range(100))
+    same_p = all(np.array_equal(eng._pool_sums(), p0) for _ in range(100))
+    if not (same_w and same_p):
+        fail(f"fingerprints changed on repeats: weight_sums {same_w}, pool sums {same_p}")
+    print(f"weight_sums ({w0.numel()} leaves) and pool sums ({p0.size} blocks): "
+          f"100 repeats bitwise equal", flush=True)
+    del eng
+
+    print(f"-- (c) seeded SDC episodes (max_len {SDC_MAX_LEN}, {SDC_SLOTS} slots, "
+          f"{len(SDC_MIXES)} episodes: the test matrix's fault mixes once, modes "
+          f"alternating; cut from the tests' SDC_EPISODES-driven count)", flush=True)
+    setups = {m: sdc_engines(cfg, params, m) for m in ("checksum", "paranoid")}
+    reports = []
+    for ep, (n_compute, n_kv) in enumerate(SDC_MIXES):
+        mode = ("checksum", "paranoid")[ep % 2]
+        eng, oracle_eng = setups[mode]
+        seed = chaos.SEED_STRIDE + ep
+        ereqs = chaos.make_sdc_workload(np.random.default_rng(seed), cfg.vocab, SDC_MAX_LEN)
+        t0 = time.perf_counter()
+        try:
+            oracle = chaos.oracle_outputs(oracle_eng, ereqs)
+            rep = chaos.run_sdc_episode(eng, oracle, ereqs, seed, n_compute=n_compute, n_kv=n_kv)
+        except AssertionError as e:
+            fail(f"sdc episode {ep} ({mode}): {e}")
+        reports.append(dict(dataclasses.asdict(rep), mode=mode, s=time.perf_counter() - t0))
+        print(f"episode {ep} {mode}: {rep.steps} steps, injected {rep.injected}, detected "
+              f"{rep.detected}, retried {rep.retried}, quarantined {rep.quarantined}, "
+              f"{rep.statuses} ({reports[-1]['s']:.1f} s)", flush=True)
+    fired = sum(r["injected"]["compute"] for r in reports), sum(r["injected"]["kv"] for r in reports)
+    if not (fired[0] and fired[1]):
+        fail(f"sdc episodes: a fault surface never fired (compute, kv) = {fired}")
+    out["episodes"] = reports
+
+    print("-- (d) a weight flip raises before anything is emitted", flush=True)
+    eng, _ = setups["checksum"]
+    rng = np.random.default_rng(41)
+    for i in range(SDC_SLOTS):
+        eng.submit(Request(rng.integers(0, cfg.vocab, 10).astype(np.int32), max_new=16,
+                           request_id=i))
+    emitted = []
+    for _ in range(3):
+        eng.step(on_token=lambda *a: emitted.append(a))
+    n_before = len(emitted)
+    eng.params, leaf = chaos.flip_weight_bit(eng.params, rng)
+    try:
+        eng.step(on_token=lambda *a: emitted.append(a))
+        fail("a weight flip did not raise SDCUnlocalizedError")
+    except SDCUnlocalizedError as e:
+        if len(emitted) != n_before:
+            fail("tokens were emitted on the step that found the weight flip")
+        print(f"weight flip in leaf {leaf}: SDCUnlocalizedError ({e}), nothing emitted",
+              flush=True)
+    out["weight_flip_leaf"] = leaf
+    return out
 
 
 def check_decode_step(cfg, params) -> float:
@@ -442,7 +691,9 @@ def main() -> None:
     cfg = get("smollm-360m")
     # the first admission prefills the 8 prefix-sharing prompts, padded to
     # the 16-token bucket above PREFIX + 15, as one batch
-    check_gemm(results, prefill_m=SLOTS * (-(-(PREFIX + 15) // 16) * 16))
+    prefill_m = SLOTS * (-(-(PREFIX + 15) // 16) * 16)
+    check_gemm(results, prefill_m=prefill_m)
+    check_gemm_abft(results, prefill_m=prefill_m)
 
     print("== serve smollm-360m (full width, random weights)", flush=True)
     params = build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
@@ -452,7 +703,7 @@ def main() -> None:
     totals = {n: 0 for n in WRAPPERS}
     for matmul in ("xla", "pallas"):
         for layout in ("contiguous", "paged"):
-            res, toks = serve_once(cfg, params, layout, matmul, reqs)
+            res, toks, _ = serve_once(cfg, params, layout, matmul, reqs)
             runs.append(res)
             tokens[(layout, matmul)] = toks
             need = ["flash_decode" if layout == "contiguous" else "flash_decode_paged"]
@@ -470,6 +721,9 @@ def main() -> None:
     print("== where a decode step's time goes", flush=True)
     prof = profile_decode(cfg, params, reqs)
 
+    print("== SDC defense (abft), full width, paged KV", flush=True)
+    sdc = sdc_phase(cfg, params, reqs, runs[-1], tokens[("paged", "pallas")], totals)
+
     print("== reference check", flush=True)
     check_decode_step(cfg, params)
 
@@ -478,7 +732,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
-             serve=runs, decode_profile=prof, seconds=time.perf_counter() - t_start),
+             serve=runs, decode_profile=prof, sdc=sdc,
+             seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [
         dict(name=n, **KERNEL_INFO[n], launches=totals[n],

@@ -14,6 +14,7 @@ functions return the same cache dict they were given.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
@@ -35,11 +36,16 @@ class Dispatch:
     ``attention``: "flash" routes cached single-token decode through the
     ragged decode-attention kernel; None keeps the masked dense/blockwise
     oracle.  ``decode_block`` pins the contiguous decode KV split (None =
-    ``ops._pick_decode_bk``)."""
+    ``ops._pick_decode_bk``).  ``trace``: the step's ABFT recorder
+    (``kernels.abft.AbftTrace``) or None.  With a trace, every projection
+    runs through ``trace.mm`` (checksummed; through the checksum GEMM under
+    ``matmul="pallas"``) and every paged decode-attention output is
+    fingerprinted, where the reference installs ``layers.abft_override``."""
 
     matmul: str = "xla"
     attention: str | None = None
     decode_block: int | None = None
+    trace: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if self.matmul not in ("xla", "pallas"):
@@ -98,6 +104,8 @@ def _mm(
     """``x @ w`` (or ``x @ w.T`` with ``trans_b``) through the dispatched
     GEMM.  The transposed form serves the tied unembedding without copying
     the (vocab, d_model) table."""
+    if dispatch.trace is not None:
+        return dispatch.trace.mm(x, w, dispatch.matmul, trans_b=trans_b)
     if dispatch.matmul == "pallas":
         from repro_torch.kernels.matmul.ops import matmul
 
@@ -218,12 +226,15 @@ def multihead_attention(
         cache["len"].copy_(lengths)
         from repro_torch.kernels.flash_attention.ops import decode_attention_paged
 
+        qg = q.reshape(B, kv, g, hd)
         ctx = decode_attention_paged(
-            q.reshape(B, kv, g, hd), kpool, vpool, table, lengths,
+            qg, kpool, vpool, table, lengths,
             # paged caches exist only for all-global configs
             window=None,
             impl=None if dispatch.attention == "flash" else "plain",
         )
+        if dispatch.trace is not None:
+            ctx = dispatch.trace.check_paged_attention(ctx, qg, kpool, vpool, table, lengths)
         return _mm(ctx.reshape(B, Tq, h * hd), params["wo"], dispatch), cache
     if cache is not None:
         size = cache["k"].shape[1]

@@ -134,13 +134,29 @@ class Model:
                 ragged = True  # paged caches exist only for all-global configs
             else:
                 ragged = bool((wins >= caches["k"].shape[2]).all())
+        # ABFT: the reference scans its layers, so every layer's check sites
+        # share one trace-time call index and the fault's `layer` picks the
+        # layer.  The counters restart at every layer to address the same
+        # sites; each layer's verdicts are ORed as the scan drains them.
+        trace = dispatch.trace
+        if trace is not None:
+            sites = (trace.mm_calls, trace.attn_calls)
+            layer_flags = []
         for i in range(cfg.n_layers):
+            if trace is not None:
+                trace.layer = i
+                trace.mm_calls, trace.attn_calls = sites
             x = attn_block_apply(
                 _index(params["layers"], i), cfg, x,
                 window=int(wins[i]), positions=positions,
                 cache=None if caches is None else _index(caches, i),
                 ragged_ok=ragged, dispatch=dispatch,
             )
+            if trace is not None:
+                layer_flags.append(trace.drain(x.device))
+        if trace is not None:
+            trace.layer = None
+            trace.flags.append(torch.stack(layer_flags).any())
         return x
 
     def logits_fn(

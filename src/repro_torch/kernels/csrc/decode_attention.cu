@@ -29,6 +29,19 @@
 // not -inf; p is rounded to bf16 (V's type) before the P.V product; the
 // final divide is by max(l, 1e-30); the paged window keeps k_idx >
 // len - 1 - window.
+//
+// Bitwise equal to the plain PyTorch version (decode_attention.py), so
+// that the ABFT fingerprint (kernels/abft.py), which recomputes sampled
+// rows on the plain version and compares within 1e-5 of the output's
+// scale, never flags a clean step.  Summation order cannot be matched
+// between this loop and PyTorch's reductions, so every sum is made
+// independent of its order instead: the q.k and p.V dot products and the
+// split's sum of p accumulate in fp64, where the products of bf16 values
+// (16 significant bits) and the few terms add exactly, and round once to
+// fp32; exp runs in fp64 and rounds once; the running rescales are
+// explicit round-to-nearest fp32 multiplies and adds (no FMA contraction),
+// as PyTorch's separate elementwise operations are.  The plain version
+// does the same operations, so both round the same exact values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,14 +124,14 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // scores s[g, t] = (q_g . k_t) * scale, masked to -1e30
+    // scores s[g, t] = fp32(q_g . k_t) * scale, masked to -1e30
     for (int i = tid; i < G * bk; i += kThreads) {
       const int g = i / bk, t = i % bk;
-      float s = 0.f;
+      double dot = 0.0;
 #pragma unroll 8
       for (int d = 0; d < D; ++d)
-        s = fmaf(qs[g * D + d], __bfloat162float(ks[t * KS + d]), s);
-      s *= scale;
+        dot += (double)qs[g * D + d] * (double)__bfloat162float(ks[t * KS + d]);
+      const float s = __fmul_rn((float)dot, scale);
       const int kidx = j * bk + t;
       bool live = kidx < len;
       if (window >= 0) live = live && (kidx > len - 1 - window);
@@ -133,37 +146,37 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       for (int o = 16; o > 0; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m_run[g], mx);
-      float sum = 0.f;
+      double sum = 0.0;
       for (int t = lane; t < bk; t += 32) {
-        const float p = expf(ps[g * bk + t] - m_new);
+        const float p = (float)exp((double)__fsub_rn(ps[g * bk + t], m_new));
         ps[g * bk + t] = p;
-        sum += p;
+        sum += (double)p;
       }
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
       if (lane == 0) {
-        const float c = expf(m_run[g] - m_new);
+        const float c = (float)exp((double)__fsub_rn(m_run[g], m_new));
         corr[g] = c;
-        l_run[g] = l_run[g] * c + sum;
+        l_run[g] = __fadd_rn(__fmul_rn(l_run[g], c), (float)sum);
         m_run[g] = m_new;
       }
     }
     __syncthreads();
 
-    // acc[g, :] = acc * corr + bf16(p[g, :]) . V
+    // acc[g, :] = acc * corr + fp32(bf16(p[g, :]) . V)
     for (int i = tid; i < G * D; i += kThreads) {
       const int g = i / D, d = i % D;
-      float pv = 0.f;
+      double pv = 0.0;
       for (int t = 0; t < bk; ++t)
-        pv = fmaf(__bfloat162float(__float2bfloat16(ps[g * bk + t])),
-                  __bfloat162float(vs[t * D + d]), pv);
-      acc[i] = acc[i] * corr[g] + pv;
+        pv += (double)__bfloat162float(__float2bfloat16(ps[g * bk + t])) *
+              (double)__bfloat162float(vs[t * D + d]);
+      acc[i] = __fadd_rn(__fmul_rn(acc[i], corr[g]), (float)pv);
     }
     __syncthreads();
   }
 
   for (int i = tid; i < G * D; i += kThreads)
-    out[qbase + i] = __float2bfloat16(acc[i] / fmaxf(l_run[i / D], 1e-30f));
+    out[qbase + i] = __float2bfloat16(__fdiv_rn(acc[i], fmaxf(l_run[i / D], 1e-30f)));
 }
 
 template <int D, class Rows>

@@ -22,6 +22,21 @@
 // summed by one block in a fixed order, so results are deterministic.
 // Fixed tiles, no TMA/wgmma pipeline and one block per 64 output columns
 // leave a skinny GEMM well short of HBM bandwidth; that is later work.
+//
+// gemm_bf16_abft replaces matmul_pallas_abft (the same file of the
+// reference): the same product, plus the Huang-Abraham column checksums
+// e^T.C of every row block, summed from the fp32 accumulator before the
+// bf16 cast and returned as a (ceil(M/BM), N) fp32 array.  It is this
+// kernel with a checksum epilogue: the same tiles and the same K order, so
+// its C is bitwise gemm_bf16's.  The row block is the kernel's own BM (16
+// for M <= 16, else 64).  One thread per output column sums the block's
+// valid rows in row order (no atomics), so the checksums repeat bit for bit;
+// rows and columns past the matrix add nothing.  The epilogue reads the
+// fp32 tile already staged in shared memory for the store, so it adds no
+// device-memory traffic beyond the (M/BM, N) checksums: the kernel stays
+// bound by the weight bytes, like gemm_bf16.  The verdict that compares the
+// checksums with (e^T.A).B is a plain product outside the kernel, as in the
+// reference (kernels/matmul/ops.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,10 +82,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
   }
 }
 
-template <int BM, int BN, int WM, int WN, bool TRANS_B>
+// With ABFT it also writes the row block's fp32 column sums to checks
+template <int BM, int BN, int WM, int WN, bool TRANS_B, bool ABFT>
 __global__ void __launch_bounds__(WM * WN * 32)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-            bf16* __restrict__ C, int M, int N, int K, bool vec_a, bool vec_b) {
+            bf16* __restrict__ C, float* __restrict__ checks, int M, int N,
+            int K, bool vec_a, bool vec_b) {
   constexpr int THREADS = WM * WN * 32;
   constexpr int FM = BM / (16 * WM), FN = BN / (16 * WN);
   constexpr int LDA = BK + PAD;
@@ -133,26 +150,34 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     const int gr = m0 + r, gc = n0 + c;
     if (gr < M && gc < N) C[(long long)gr * N + gc] = __float2bfloat16(Cs[r * LDC + c]);
   }
+  if (ABFT && threadIdx.x < BN) {
+    const int c = threadIdx.x, gc = n0 + c;
+    if (gc < N) {
+      const int rows = min(BM, M - m0);
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += Cs[r * LDC + c];
+      checks[(long long)blockIdx.y * N + gc] = s;
+    }
+  }
 }
 
-template <int BM, int BN, int WM, int WN>
-cudaError_t launch(const bf16* A, const bf16* B, bf16* C, int M, int N, int K,
-                   bool trans_b, bool vec_a, bool vec_b, cudaStream_t stream) {
+template <int BM, int BN, int WM, int WN, bool ABFT>
+cudaError_t launch(const bf16* A, const bf16* B, bf16* C, float* checks, int M,
+                   int N, int K, bool trans_b, bool vec_a, bool vec_b,
+                   cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (trans_b)
-    gemm_kernel<BM, BN, WM, WN, true>
-        <<<grid, WM * WN * 32, 0, stream>>>(A, B, C, M, N, K, vec_a, vec_b);
+    gemm_kernel<BM, BN, WM, WN, true, ABFT><<<grid, WM * WN * 32, 0, stream>>>(
+        A, B, C, checks, M, N, K, vec_a, vec_b);
   else
-    gemm_kernel<BM, BN, WM, WN, false>
-        <<<grid, WM * WN * 32, 0, stream>>>(A, B, C, M, N, K, vec_a, vec_b);
+    gemm_kernel<BM, BN, WM, WN, false, ABFT><<<grid, WM * WN * 32, 0, stream>>>(
+        A, B, C, checks, M, N, K, vec_a, vec_b);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// A (M, K), B (K, N) or (N, K) when trans_b, C (M, N); all bf16 row-major
-extern "C" int gemm_bf16(const void* a, const void* b, void* c, int M, int N,
-                         int K, int trans_b, void* stream) {
+template <bool ABFT>
+int gemm(const void* a, const void* b, void* c, float* checks, int M, int N,
+         int K, int trans_b, void* stream) {
   if (M < 1 || N < 1 || K < 0) return cudaErrorInvalidValue;
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* B = static_cast<const bf16*>(b);
@@ -161,8 +186,23 @@ extern "C" int gemm_bf16(const void* a, const void* b, void* c, int M, int N,
       (trans_b ? K : N) % 8 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 16)
-    return launch<16, 64, 1, 4>(A, B, static_cast<bf16*>(c), M, N, K, trans_b != 0,
-                                vec_a, vec_b, s);
-  return launch<64, 64, 2, 2>(A, B, static_cast<bf16*>(c), M, N, K, trans_b != 0,
-                              vec_a, vec_b, s);
+    return launch<16, 64, 1, 4, ABFT>(A, B, static_cast<bf16*>(c), checks, M, N, K,
+                                      trans_b != 0, vec_a, vec_b, s);
+  return launch<64, 64, 2, 2, ABFT>(A, B, static_cast<bf16*>(c), checks, M, N, K,
+                                    trans_b != 0, vec_a, vec_b, s);
+}
+
+}  // namespace
+
+// A (M, K), B (K, N) or (N, K) when trans_b, C (M, N); all bf16 row-major
+extern "C" int gemm_bf16(const void* a, const void* b, void* c, int M, int N,
+                         int K, int trans_b, void* stream) {
+  return gemm<false>(a, b, c, nullptr, M, N, K, trans_b, stream);
+}
+
+// gemm_bf16 plus checks (ceil(M / BM), N) fp32 row-major, BM = 16 for
+// M <= 16, else 64: checks[i, j] = sum of the fp32 C[i*BM : (i+1)*BM, j]
+extern "C" int gemm_bf16_abft(const void* a, const void* b, void* c, void* checks,
+                              int M, int N, int K, int trans_b, void* stream) {
+  return gemm<true>(a, b, c, static_cast<float*>(checks), M, N, K, trans_b, stream);
 }

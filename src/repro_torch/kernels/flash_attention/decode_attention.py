@@ -22,6 +22,13 @@ Masking contract: row b's live keys are indices ``[0, lengths[b])`` with
 lengths clamped to ``[1, S]`` (length 0 attends one key); masks use
 ``NEG_INF = -1e30``; ``p`` is rounded to V's dtype before the P.V product.
 
+Kernel and plain version are bitwise equal on the card, which the ABFT
+attention fingerprint (``kernels/abft.py``) relies on.  Their reduction
+orders cannot match, so neither depends on one: the q.k and p.V dot
+products and each split's sum of p accumulate in fp64, where products of
+bf16 values add exactly, and round once to fp32; exp runs in fp64 and
+rounds once; every other step is one round-to-nearest fp32 operation.
+
 Each wrapper runs the plain version only when its tensors lie on the CPU.
 A CUDA tensor launches the kernel or raises; nothing falls back.
 """
@@ -55,21 +62,21 @@ def _online_softmax(q, n_live, tile, live, v_dtype):
     ``(B, bk, KV, d)`` and ``live(j)`` its ``(B, bk)`` key mask."""
     B, KV, G, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    qf = q.float()
+    qd = q.double()
     m = torch.full((B, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KV, G), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, d), dtype=torch.float32, device=q.device)
     for j in range(n_live):
         kb, vb = tile(j)
-        s = torch.einsum("bhgd,bshd->bhgs", qf, kb.float()) * scale
+        s = torch.einsum("bhgd,bshd->bhgs", qd, kb.double()).float() * scale
         s = torch.where(live(j)[:, None, None, :], s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
+        p = torch.exp((s - m_new[..., None]).double()).float()
+        corr = torch.exp((m - m_new).double()).float()
+        l = l * corr + p.double().sum(dim=-1).float()
         acc = acc * corr[..., None] + torch.einsum(
-            "bhgs,bshd->bhgd", p.to(v_dtype).float(), vb.float()
-        )
+            "bhgs,bshd->bhgd", p.to(v_dtype).double(), vb.double()
+        ).float()
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
@@ -116,14 +123,19 @@ def decode_attention_paged_plain(
     lengths: torch.Tensor,  # (B,) int32
     *,
     window: int | None = None,
+    n_live: int | None = None,
 ) -> torch.Tensor:
     """Plain version of :func:`flash_decode_paged_cuda` (the reference's
     ``decode_attention_paged_xla``): each split's block is gathered through
-    the table."""
+    the table.  ``n_live`` bounds the splits walked; None reads the
+    deepest row's split count back from the tensors.  A bound above it
+    changes no bits (a fully masked split adds exactly nothing)."""
     bs = kpool.shape[1]
     lengths = torch.clamp(lengths.to(torch.int32), 1, tables.shape[1] * bs)
     tables = tables.long()
-    n_live = int(((lengths + bs - 1) // bs).max())
+    if n_live is None:
+        n_live = int(((lengths + bs - 1) // bs).max())
+    n_live = min(n_live, tables.shape[1])
     ar = torch.arange(bs, dtype=torch.int32, device=q.device)
     return _online_softmax(
         q, n_live,

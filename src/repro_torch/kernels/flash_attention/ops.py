@@ -66,11 +66,15 @@ def decode_attention_paged(
     *,
     window: int | None = None,
     impl: str | None = None,
+    n_live: int | None = None,
 ) -> torch.Tensor:
     """Block-table-indirect ragged flash-decoding; returns (B, KV, G, d).
     The KV split is the pool's block size, so the logical reduction order
-    matches the contiguous path at ``bk == block_size``."""
+    matches the contiguous path at ``bk == block_size``.  ``n_live`` (plain
+    version only) is a host-known upper bound on the rows' live splits."""
     _check_impl(impl)
     if impl == "plain":
-        return decode_attention_paged_plain(q, kpool, vpool, tables, lengths, window=window)
+        return decode_attention_paged_plain(
+            q, kpool, vpool, tables, lengths, window=window, n_live=n_live
+        )
     return flash_decode_paged_cuda(q, kpool, vpool, tables, lengths, window=window)

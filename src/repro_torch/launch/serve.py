@@ -72,6 +72,17 @@ def main(argv=None):
     ap.add_argument("--attention", choices=("flash", "xla"), default="flash",
                     help="decode attention: the ragged decode kernel or "
                          "the masked dense oracle")
+    ap.add_argument("--abft", choices=("off", "checksum", "paranoid"), default="off",
+                    help="silent-data-corruption defense: 'checksum' "
+                         "column-checksums every decode GEMM, fingerprints "
+                         "4 sampled rows of each decode attention and "
+                         "scrubs the weights; a flagged step is retried, a "
+                         "corrupt KV block quarantines its request; "
+                         "'paranoid' fingerprints every row (needs "
+                         "--kv-layout paged)")
+    ap.add_argument("--scrub-every", type=int, default=1,
+                    help="abft: decode steps between weight-fingerprint "
+                         "scrubs (1 = every step)")
     ap.add_argument("--kv-layout", choices=("contiguous", "paged"),
                     default="contiguous")
     ap.add_argument("--block-size", type=int, default=16,
@@ -82,6 +93,9 @@ def main(argv=None):
     ap.add_argument("--max-waiting", type=int, default=None)
     ap.add_argument("--stall-patience", type=int, default=64)
     args = ap.parse_args(argv)
+    if args.abft != "off" and args.kv_layout != "paged":
+        ap.error("--abft localizes corruption through the paged pool's "
+                 "per-block fingerprints (add --kv-layout paged)")
 
     device = resolve_device(args.device)
     cfg = get(args.arch)
@@ -98,7 +112,10 @@ def main(argv=None):
             num_blocks=args.num_blocks,
             prefix_sharing=not args.no_prefix_sharing,
         ),
-        kernel=KernelConfig(matmul=args.matmul, attention=args.attention),
+        kernel=KernelConfig(
+            matmul=args.matmul, attention=args.attention,
+            abft=args.abft, scrub_every=args.scrub_every,
+        ),
     )
     reqs = make_workload(cfg, args.requests, args.new_tokens, args.seed)
     eng = Engine(cfg, params, scfg, device=device)
@@ -118,6 +135,10 @@ def main(argv=None):
         f"tokens, {dt:.2f}s ({total_new / dt:.1f} tok/s, per-token "
         f"p50={p50 * 1e3:.1f}ms p95={p95 * 1e3:.1f}ms)"
     )
+    if args.abft != "off":
+        st = eng.stats
+        print(f"  abft={args.abft}: sdc_detected={st['sdc_detected']} "
+              f"sdc_retried={st['sdc_retried']} quarantined={st['quarantined']}")
     counts: dict[str, int] = {}
     for o in outs:
         counts[o.status.value] = counts.get(o.status.value, 0) + 1

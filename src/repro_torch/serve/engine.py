@@ -15,12 +15,21 @@ through it continuously:
 
 Ported: the request lifecycle WAITING -> ACTIVE -> FINISHED with
 ``cancel`` (CANCELLED) and load shedding (REJECTED: the ``max_waiting``
-bound and the stall watchdog), the greedy sampler, the NaN guard, and a
-temperature sampler of the port's own.  Priorities, preemption and replay,
-deadlines, the chunked-prefill lane, ABFT, recovery, ``kv_checksum``,
-autotuning and ``StaticEngine`` are not ported (ROADMAP queue A): their
-config fields are accepted only at their defaults.  The reference's
-one-shot substrate fallback is not ported either: a kernel failure raises.
+bound and the stall watchdog), the greedy sampler, the NaN guard, a
+temperature sampler of the port's own, the per-block KV checksum audit
+(``kv_checksum``), and the silent-data-corruption (SDC) defense
+(``KernelConfig.abft``): checksummed decode GEMMs, a sampled attention
+fingerprint, a periodic weight scrub, and detect -> retry -> quarantine
+(:meth:`Engine._sdc_recover`).  Priorities, preemption and replay,
+deadlines, the chunked-prefill lane, recovery, autotuning and
+``StaticEngine`` are not ported (ROADMAP queue A): their config fields are
+accepted only at their defaults.  The reference's one-shot substrate
+fallback is not ported either: a kernel failure raises.
+
+With ABFT on, admission prefill runs the plain GEMM kernel (``matmul_cuda``)
+where the reference runs the checksum kernel and drops its verdict (no
+trace is installed at admission): the two kernels' products are bitwise
+equal, so the tokens are the same.
 
 Sampling at temperature > 0 draws Gumbel noise from a CPU
 ``torch.Generator`` seeded from a mix of ``(seed, request id, token
@@ -42,6 +51,7 @@ import torch
 from repro_torch.arch import layers as L
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import abft
 from repro_torch.serve import kvcache
 
 # on_token(request_id, token, index, done)
@@ -187,15 +197,28 @@ class KernelConfig:
     # "flash": ragged decode-attention kernel; "xla": masked dense oracle
     # (contiguous) or the plain paged version (paged)
     attention: str = "flash"
-    abft: str = "off"            # not ported (ROADMAP A7)
+    # "off" | "checksum" | "paranoid": SDC defense of the decode step
+    # (kernels/abft.py).  "checksum" column-checksums every projection GEMM
+    # and fingerprints 4 sampled rows of each paged decode-attention output;
+    # "paranoid" fingerprints every row.  Paged layout only.  Served tokens
+    # are bitwise those of "off".
+    abft: str = "off"
+    # decode steps between full weight-fingerprint passes (abft only): a
+    # weight flip is caught at the next scrub, up to N-1 steps after it
+    # lands; compute and KV faults are caught on the step they strike
+    scrub_every: int = 1
 
     def __post_init__(self):
         if self.matmul not in ("xla", "pallas"):
             raise ValueError(f"matmul must be 'xla' or 'pallas': {self.matmul!r}")
         if self.attention not in ("flash", "xla"):
             raise ValueError(f"attention must be 'flash' or 'xla': {self.attention!r}")
-        if self.abft != "off":
-            raise _not_ported("ABFT (abft != 'off')", "A7")
+        if self.abft not in ("off", "checksum", "paranoid"):
+            raise ValueError(
+                f"abft must be 'off', 'checksum' or 'paranoid': {self.abft!r}"
+            )
+        if not isinstance(self.scrub_every, int) or self.scrub_every < 1:
+            raise ValueError(f"scrub_every must be a positive int: {self.scrub_every!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,13 +227,14 @@ class DurabilityConfig:
     # quarantined (FAILED, blocks released) instead of streaming garbage
     guard_nan: bool = True
     snapshot_dir: str | None = None  # not ported (ROADMAP A8)
-    kv_checksum: bool = False        # not ported (ROADMAP A8)
+    # paged only: per-physical-block |K|+|V| sums recomputed every step; a
+    # block that changed without a legal write FAILs every request holding
+    # it (blocks released).  O(pool) device work per step, off by default.
+    kv_checksum: bool = False
 
     def __post_init__(self):
         if self.snapshot_dir is not None:
             raise _not_ported("crash recovery (snapshot_dir)", "A8")
-        if self.kv_checksum:
-            raise _not_ported("per-block KV checksums (kv_checksum)", "A8")
 
 
 @dataclasses.dataclass
@@ -226,6 +250,17 @@ class ServeConfig:
     def __post_init__(self):
         if self.max_len < 2:
             raise ValueError(f"max_len must be >= 2: {self.max_len}")
+        if self.durability.kv_checksum and self.kv.layout != "paged":
+            raise ValueError(
+                "kv_checksum tracks per-physical-block sums, which only "
+                "exist under the paged layout"
+            )
+        if self.kernel.abft != "off" and self.kv.layout != "paged":
+            raise ValueError(
+                "abft localizes corruption through the paged pool's "
+                "per-block fingerprints and the plain paged attention; "
+                "set KVConfig(layout='paged') (or abft='off')"
+            )
         if self.kv.layout == "paged" and self.max_len % self.kv.block_size:
             raise ValueError(
                 f"max_len {self.max_len} must be a multiple of block_size "
@@ -257,6 +292,9 @@ class _SlotState:
     rid: int
     emitted: int                 # tokens generated so far
     budget: int
+    # abft: checksum-failed steps survived while this request was live
+    # (quarantined once it reaches SDC_RETRY_BUDGET)
+    sdc_retries: int = 0
 
 
 @dataclasses.dataclass
@@ -281,6 +319,19 @@ def _mix(seed: int, rid: int, t: int) -> int:
     x = (x * 0x94D049BB133111EB) & ((1 << 64) - 1)
     x ^= x >> 31
     return x >> 1
+
+
+# checksum-failed steps one request survives (each costs a rewind and a
+# re-execution on the plain attention) before it is quarantined as the
+# probable corruption source
+SDC_RETRY_BUDGET = 2
+
+
+class SDCUnlocalizedError(RuntimeError):
+    """A detected silent data corruption could not be pinned to one
+    request: the retry on the plain attention still failed its checksums,
+    or the weight fingerprint changed.  Raised BEFORE the step's tokens are
+    emitted, so no corrupt token leaves the engine."""
 
 
 def resolve_device(device=None) -> torch.device:
@@ -347,6 +398,9 @@ class Engine:
             self._sink_row = torch.zeros(
                 (scfg.max_len // kv.block_size,), dtype=torch.int32, device=self.device
             )
+            # host mirror of every row's device length (rows that hold no
+            # request keep growing one a step, as on the device)
+            self._row_len = np.zeros((B,), np.int64)
         else:
             self.caches = kvcache.build_caches(cfg, B, scfg.max_len, self.device)
             self.pool = None
@@ -369,7 +423,29 @@ class Engine:
             "rejected": 0,
             "shed": 0,
             "quarantined": 0,
+            "sdc_detected": 0,  # abft: steps whose checks flagged
+            "sdc_retried": 0,   # abft: re-executions on the plain attention
         }
+
+        # ---- abft state (kernels/abft.py) ----
+        self._abft = scfg.kernel.abft if scfg.kernel.abft != "off" else None
+        # the one-shot SDC injection point for the next decode step
+        self._fault = abft.no_fault()
+        self._abft_probe: dict[str, int] = {}  # check sites of one step
+        self._wsums0 = self._colstats = None
+        if self._abft:
+            # weight fingerprint baselined once: checksums cannot see weight
+            # flips, so scrub steps re-reduce and compare exactly
+            self._wsums0 = abft.weight_sums(self.params)
+            # static per-column |w| bounds for the checksum tolerance
+            self._colstats = abft.weight_colstats(self.params)
+        # per-physical-block |K|+|V| sums, mirrored on the host and compared
+        # every step against the blocks legally written; abft arms them too,
+        # to localize KV flips between steps
+        self._kv_sums: np.ndarray | None = None
+        self._touched: set[int] = set()
+        if scfg.durability.kv_checksum or (self._abft and self._paged):
+            self._kv_sums = self._pool_sums()
 
     # ----------------------------------------------------------- sampling --
     def _sample(
@@ -536,6 +612,10 @@ class Engine:
             slot = self._free.popleft()
             self._register_chain(info, row)
             self._rows[slot] = row
+            if self._kv_sums is not None:
+                # admission packs (or aliases) these blocks this step;
+                # marking aliased ones is a harmless over-approximation
+                self._touched.update(row.blocks)
             groups.setdefault(self._bucket_len(row.plen), []).append((info, slot, row))
 
         for lpad, items in groups.items():
@@ -547,6 +627,7 @@ class Engine:
                 kvcache.paged_set_row(
                     self.caches, slot, torch.from_numpy(table_row).to(self.device), row.plen
                 )
+                self._row_len[slot] = row.plen
                 n_prompt = -(-row.plen // bs)
                 start = row.n_shared_full
                 n_pack = n_prompt - start - (1 if row.tail_shared else 0)
@@ -616,6 +697,8 @@ class Engine:
             src = row.blocks[lb]
             kvcache.paged_copy_block(self.caches, slot, lb, src, row.cow_dst)
             self.pool.release(src)
+            if self._kv_sums is not None:
+                self._touched.add(row.cow_dst)
             row.blocks[lb] = row.cow_dst
             row.cow_dst = None
             row.tail_shared = False
@@ -625,6 +708,7 @@ class Engine:
         owned block, including a pending CoW reservation, to the pool."""
         row = self._rows.pop(slot)
         kvcache.paged_set_row(self.caches, slot, self._sink_row, 0)
+        self._row_len[slot] = 0
         for b in row.blocks:
             self.pool.release(b)
         if row.cow_dst is not None:
@@ -674,11 +758,149 @@ class Engine:
         self.stats["quarantined"] += 1
         self._finish(info, RequestStatus.FAILED, reason)
 
+    # ----------------------------------------------------------------- sdc --
+    def _pool_sums(self) -> np.ndarray:
+        """Per-physical-block |K| + |V| sums over every layer (fp32)."""
+        def per_block(pool):
+            return torch.sum(torch.abs(pool), dim=(0, 2, 3, 4), dtype=torch.float32)
+
+        return (per_block(self.caches["kpool"]) + per_block(self.caches["vpool"])).cpu().numpy()
+
+    def _audit_kv_checksums(self) -> None:
+        """Recompute the per-block sums and compare them with the last
+        step's.  A block that changed without a legal write this step
+        (``self._touched``) is corrupt: every request holding it is
+        quarantined.  NaN sums compare equal to themselves here, so a
+        poisoned block that was already quarantined does not fire again."""
+        sums = self._pool_sums()
+        prev = self._kv_sums
+        changed = (sums != prev) & ~(np.isnan(sums) & np.isnan(prev))
+        if self._touched:
+            changed[list(self._touched)] = False
+        prefix = "sdc: " if self._abft else ""
+        for b in np.nonzero(changed)[0]:
+            b = int(b)
+            owners = [s for s, row in self._rows.items() if b in row.blocks or row.cow_dst == b]
+            for s in owners:
+                if s in self._slots:
+                    self._quarantine(
+                        s, f"{prefix}KV corruption: block {b} checksum changed without a write"
+                    )
+        self._kv_sums = sums
+
+    def arm_fault(
+        self, site: int, call_idx: int, row: int, col: int, bit: int, layer: int = -1
+    ) -> None:
+        """Arm the one-shot SDC injection for the next decode step (see
+        kernels/abft.py for the site codes, ``col == -1`` targeting the
+        row's largest element, and ``layer``: -1 aims at the unembed GEMM
+        outside the layer loop).  It is cleared after the faulty pass, so
+        the retry models a transient flip and runs clean."""
+        if not self._abft:
+            raise ValueError(
+                "arm_fault needs the abft pipeline: set "
+                "KernelConfig.abft='checksum' (or 'paranoid')"
+            )
+        self._fault = np.array([site, call_idx, row, col, bit, layer, 0, 0], np.int32)
+
+    def _decode_abft(self, toks: torch.Tensor, fault: np.ndarray, attention):
+        """One checked decode pass: (logits, flags), ``flags`` a 0-d int32
+        device tensor, bit 0 = a checksum or fingerprint failed, bit 1 = the
+        weight fingerprint changed (scrub steps only)."""
+        B = self.scfg.scheduler.batch
+        bs = self.scfg.kv.block_size
+        cap = self.scfg.max_len
+        # the fingerprinted rows' live splits after this step's write,
+        # known on the host: the plain recomputation reads nothing back
+        lens = np.clip(self._row_len[abft.sample_rows(B, self._abft)] + 1, 1, cap)
+        trace = abft.AbftTrace(
+            self._abft, fault, self._colstats, live_splits=int(-(-lens.max() // bs))
+        )
+        dispatch = dataclasses.replace(self.dispatch, attention=attention, trace=trace)
+        logits, self.caches = self.model.decode_step(
+            self.params, toks, self.caches, dispatch=dispatch
+        )
+        self._abft_probe.update(mms=trace.mm_calls, attns=trace.attn_calls)
+        flags = trace.any_bad(self.device).to(torch.int32)
+        if fault[abft.FAULT_SCRUB]:
+            w_bad = torch.any(abft.weight_sums(self.params) != self._wsums0)
+            flags = flags | (w_bad.to(torch.int32) << 1)
+        return logits, flags
+
+    def _flags_and_guard(self, logits: torch.Tensor, flags: torch.Tensor):
+        """The step's verdict and its NaN-guard rows in one device-to-host
+        transfer: (flags as int, per-live-row non-finite list)."""
+        live = sorted(self._slots)
+        nonfinite = ~torch.isfinite(logits[live].float()).all(dim=-1)
+        host = torch.cat([flags.reshape(1), nonfinite.to(torch.int32)]).cpu().tolist()
+        return host[0], [bool(b) for b in host[1:]]
+
+    def _decode_checked(self, toks: torch.Tensor):
+        """The ABFT decode: run the checked pass with this step's fault
+        operand (the scrub flag set on the ``scrub_every`` cadence), then
+        detect and recover.  Returns (logits, NaN-guard rows)."""
+        fault = self._fault.copy()
+        fault[abft.FAULT_SCRUB] = self._step_no % self.scfg.kernel.scrub_every == 0
+        self._fault = abft.no_fault()  # transient: one shot
+        logits, flags = self._decode_abft(toks, fault, self.dispatch.attention)
+        f, bad = self._flags_and_guard(logits, flags)
+        if f:
+            logits, bad = self._sdc_recover(f, toks)
+        return logits, bad
+
+    def _sdc_recover(self, flags: int, toks: torch.Tensor):
+        """Detect -> localize -> retry.  Rewind every row's length by one
+        and re-execute the step on the plain paged attention (the
+        reference's oracle substrate) with the fault disarmed: KV writes
+        land at positions that depend on lengths and tables only, so the
+        retry overwrites whatever the faulty pass wrote.  A retry that still
+        fails, or any weight-fingerprint mismatch, cannot be localized:
+        raise before anything is emitted."""
+        self.stats["sdc_detected"] += 1
+        if flags & 2:
+            raise SDCUnlocalizedError(
+                "weight fingerprint mismatch: parameter corruption cannot be "
+                "retried away; restart the engine with freshly loaded params"
+            )
+        # a step-level checksum cannot name the victim row, so every live
+        # request is charged one retry; repeat offenders are quarantined as
+        # the probable corruption source before the re-execution
+        for s in sorted(self._slots):
+            if self._slots[s].sdc_retries >= SDC_RETRY_BUDGET:
+                self._quarantine(s, "sdc: retry budget exhausted")
+            else:
+                self._slots[s].sdc_retries += 1
+        # rows quarantined just now sit at length 0; they write to the sink
+        # either way, so their rewind stops at 0.  (The host mirror
+        # ``_row_len`` advances only after the step, so it needs no rewind.)
+        self.caches["len"].sub_(1).clamp_(min=0)
+        self.stats["sdc_retried"] += 1
+        # disarmed, but scrubbing: the retry must rule out weight corruption
+        # before its verdict is trusted, whatever the scrub cadence
+        retry = abft.no_fault()
+        retry[abft.FAULT_SCRUB] = 1
+        logits, flags2 = self._decode_abft(toks, retry, None)
+        f, bad = self._flags_and_guard(logits, flags2)
+        if f:
+            raise SDCUnlocalizedError(
+                "checksum failure persisted across the retry on the plain "
+                "attention: the corruption cannot be localized"
+            )
+        return logits, bad
+
     # -------------------------------------------------------------- drive --
     def step(self, on_token: TokenCallback | None = None) -> bool:
         """Backfill free slots from the queue, then advance every occupied
-        slot by one decode token.  Returns False once the engine is idle."""
+        slot by one decode token.  Returns False once the engine is idle.
+        With ABFT on, a step whose checks flag is retried before anything
+        is emitted (:meth:`_sdc_recover`)."""
+        if self._abft and self._kv_sums is not None:
+            # audit BEFORE decode, against the blocks the PREVIOUS step
+            # legally wrote: a KV flip between steps quarantines its owner
+            # before the poisoned read, so survivors never see the block
+            self._audit_kv_checksums()
         self._step_no += 1
+        self._touched = {kvcache.SINK_BLOCK}
         admitted = False
         while self._free and self._waiting:
             if not self._admit_waiting(on_token):
@@ -708,10 +930,23 @@ class Engine:
             return bool(self._waiting)
         self._stalled = 0
 
+        if self._kv_sums is not None:
+            # the one block each live row legally appends to this step
+            # (decode writes KV at position plen + emitted - 1)
+            bs = self.scfg.kv.block_size
+            for s, st in self._slots.items():
+                row = self._rows[s]
+                self._touched.add(row.blocks[(row.plen + st.emitted - 1) // bs])
         toks = torch.from_numpy(self._cur_tok[:, None]).to(self.device)
-        logits, self.caches = self.model.decode_step(
-            self.params, toks, self.caches, dispatch=self.dispatch
-        )
+        bad = None
+        if self._abft:
+            logits, bad = self._decode_checked(toks)
+        else:
+            logits, self.caches = self.model.decode_step(
+                self.params, toks, self.caches, dispatch=self.dispatch
+            )
+        if self._paged:
+            self._row_len += 1
         live = sorted(self._slots)
         nxt = self._cur_tok.copy()
         nxt[live] = self._sample(
@@ -721,7 +956,8 @@ class Engine:
         )
         self._cur_tok = nxt
         if self.scfg.durability.guard_nan:
-            bad = (~torch.isfinite(logits[live].float()).all(dim=-1)).cpu().tolist()
+            if bad is None:
+                bad = (~torch.isfinite(logits[live].float()).all(dim=-1)).cpu().tolist()
             # quarantine BEFORE emission: a poisoned row's token is garbage
             for s in [s for s, b in zip(live, bad) if b]:
                 self._quarantine(s, "non-finite logits: KV/activation corruption")
@@ -744,6 +980,8 @@ class Engine:
                 continue  # the done-callback already cancelled it
             self._release_slot(s)
             self._finish(self._reqs[rid], RequestStatus.FINISHED, "")
+        if self._kv_sums is not None and not self._abft:
+            self._audit_kv_checksums()
         return True
 
     def pop_result(self, rid: int) -> RequestResult:

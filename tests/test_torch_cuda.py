@@ -6,10 +6,14 @@ import no JAX, so they run on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel is held against its plain PyTorch version on the same inputs.
-Tolerances: decode attention to two bf16 ulps at unit scale (both sides sum
-in fp32 and round once, in other orders); the GEMM to one bf16 ulp of the
-output's scale.  Paged decode equals contiguous decode bitwise at
-``bk == block_size``, since both run one kernel body in one order.
+Decode attention bitwise (both accumulate order-independently in fp64 and
+round once: the ABFT fingerprint compares them within 1e-5 of the output
+scale); the GEMM to one bf16 ulp of the output's scale.  Paged decode equals contiguous decode bitwise at
+``bk == block_size``, since both run one kernel body in one order.  The
+checksum GEMM's product equals the GEMM's bitwise; its checksums are held
+to the plain version's within the ABFT tolerance
+``ABFT_ATOL + ABFT_RTOL * (e^T|A|)|B|`` (fp32 sums in other orders) and
+repeat bit for bit.
 """
 
 import dataclasses
@@ -20,8 +24,16 @@ import torch
 
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.registry import get
+from repro_torch.kernels import abft
 from repro_torch.kernels.flash_attention import decode_attention as dec
-from repro_torch.kernels.matmul.matmul import matmul_cuda, matmul_plain
+from repro_torch.kernels.matmul import ops as mmops
+from repro_torch.kernels.matmul.matmul import (
+    abft_block_rows,
+    matmul_abft_cuda,
+    matmul_abft_plain,
+    matmul_cuda,
+    matmul_plain,
+)
 from repro_torch.serve import engine as te
 
 
@@ -53,12 +65,12 @@ def test_decode_kernels_match_plain_and_agree_bitwise(cuda, G, d):
     paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
     torch.cuda.synchronize()
     assert torch.equal(contig, paged)
-    plain = dec.decode_attention_plain(q, k, v, lengths, bk=bs)
-    torch.testing.assert_close(contig.float(), plain.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(contig, dec.decode_attention_plain(q, k, v, lengths, bk=bs))
+    assert torch.equal(paged, dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths))
     for window in (1, 7, 40):
         got = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths, window=window)
         want = dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths, window=window)
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -96,6 +108,93 @@ def test_gemm_rows_do_not_depend_on_m(cuda):
     a, b = _randn((40, 960), g, cuda), _randn((960, 320), g, cuda)
     full = matmul_cuda(a, b)
     assert torch.equal(matmul_cuda(a[:8].contiguous(), b), full[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M", [9, 17, 300])
+@pytest.mark.parametrize("K,N", [(960, 320), (2560, 960), (64, 49)])
+def test_gemm_abft_kernel(cuda, M, K, N, trans_b):
+    """Product bitwise gemm_bf16's, both outputs the same bits on a second
+    run, product and checksums against the plain version; M = 9 and 17 are
+    the decode M (8 and 16 slots plus the checksum row), 300 a prefill M."""
+    g = torch.Generator(device=cuda).manual_seed(M * 3 + K + N)
+    a = _randn((M, K), g, cuda)
+    b = _randn((N, K) if trans_b else (K, N), g, cuda)
+    out, checks = matmul_abft_cuda(a, b, trans_b=trans_b)
+    out2, checks2 = matmul_abft_cuda(a, b, trans_b=trans_b)
+    base = matmul_cuda(a, b, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, base)
+    assert torch.equal(out2, out) and torch.equal(checks2, checks)
+    want, want_checks = matmul_abft_plain(a, b, trans_b=trans_b)
+    ulp = 2.0**-7 * want.float().abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=ulp)
+    bm = abft_block_rows(M)
+    nrb = -(-M // bm)
+    assert checks.shape == (nrb, N)
+    a_abs = torch.nn.functional.pad(a.float().abs(), (0, 0, 0, nrb * bm - M))
+    scale = a_abs.reshape(nrb, bm, K).sum(1) @ (b.T if trans_b else b).float().abs()
+    assert bool(((checks - want_checks).abs() <= abft.ABFT_ATOL + abft.ABFT_RTOL * scale).all())
+    assert not bool(mmops.matmul_abft(a, b, trans_b=trans_b)[1])
+
+
+@pytest.mark.cuda
+def test_gemm_abft_rows_do_not_depend_on_m_across_the_tile_switch(cuda):
+    """16 rows take the 16-row tile, 17 the 64-row tile: a row's bits stay."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    a, b = _randn((17, 960), g, cuda), _randn((960, 2560), g, cuda)
+    o16, _ = matmul_abft_cuda(a[:16].contiguous(), b)
+    o17, _ = matmul_abft_cuda(a, b)
+    assert torch.equal(o16, o17[:16])
+    assert torch.equal(matmul_cuda(a[:16].contiguous(), b), matmul_cuda(a, b)[:16])
+
+
+@pytest.mark.cuda
+def test_gemm_abft_calibration_on_the_card(cuda):
+    """The calibrated tolerance on the kernel's own checksums: 200 clean
+    products (decode and prefill M, the serve shapes' K) raise no flag, and
+    a flip of a bf16-surviving bit (23..29) of a row's largest output of
+    the kernel is caught by ``mm_check`` every time (as tests/test_sdc.py
+    holds the reference)."""
+    shapes = [(9, 960, 960), (17, 960, 2560), (9, 2560, 960), (130, 960, 320)]
+    for i in range(200):
+        M, K, N = shapes[i % len(shapes)]
+        g = torch.Generator(device=cuda).manual_seed(10_000 + i)
+        a, b = _randn((M, K), g, cuda), _randn((K, N), g, cuda) * 0.05
+        assert not bool(mmops.matmul_abft(a, b)[1]), f"false positive at seed {10_000 + i}"
+    for i in range(60):
+        M, K, N = shapes[i % len(shapes)]
+        g = torch.Generator(device=cuda).manual_seed(20_000 + i)
+        a, b = _randn((M, K), g, cuda), _randn((K, N), g, cuda) * 0.05
+        out = matmul_abft_cuda(a, b)[0]
+        fault = np.array([abft.FAULT_MATMUL, 0, i % M, -1, 23 + i % 7, -1, 0, 0], np.int32)
+        abft._maybe_flip(out, fault, abft.FAULT_MATMUL, 0, True)
+        assert bool(abft.mm_check(a, b, out)), f"flip missed at seed {20_000 + i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul", ["xla", "pallas"])
+def test_engine_abft_tokens_equal_abft_off_on_the_card(cuda, matmul):
+    cfg = dataclasses.replace(get("smollm-360m-smoke"), n_heads=6, head_dim=64)
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 37, 12, 60, 3)]
+    outs = {}
+    for mode in ("off", "checksum", "paranoid"):
+        scfg = te.ServeConfig(
+            max_len=128, scheduler=te.SchedulerConfig(batch=4, prefill_bucket=16),
+            kv=te.KVConfig(layout="paged", block_size=16),
+            kernel=te.KernelConfig(matmul=matmul, abft=mode),
+        )
+        matmul_abft_cuda.launches = 0
+        eng = te.Engine(cfg, params, scfg)
+        outs[mode] = [o.tolist() for o in eng.run(
+            [te.Request(p, max_new=8, request_id=i) for i, p in enumerate(prompts)]
+        )]
+        assert eng.stats["sdc_detected"] == 0
+        assert (matmul_abft_cuda.launches > 0) == (matmul == "pallas" and mode != "off")
+    assert outs["checksum"] == outs["off"] == outs["paranoid"]
 
 
 @pytest.mark.cuda

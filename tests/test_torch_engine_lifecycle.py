@@ -118,10 +118,11 @@ def test_lifecycle_cancel_reject_and_unported_fields(smol):
     res = eng.pop_result(a)
     assert res.status == te.RequestStatus.CANCELLED and len(res) == 2
     assert eng.pop_result(a).status == te.RequestStatus.UNKNOWN
+    # ported since (ROADMAP A7): ABFT and the per-block KV checksums
+    assert te.KernelConfig(abft="checksum").abft == "checksum"
+    assert te.DurabilityConfig(kv_checksum=True).kv_checksum
     for make in (
         lambda: te.SchedulerConfig(prefill_chunk=8),
-        lambda: te.KernelConfig(abft="checksum"),
-        lambda: te.DurabilityConfig(kv_checksum=True),
         lambda: te.DurabilityConfig(snapshot_dir="x"),
         lambda: eng.submit(te.Request(np.arange(3), priority=1)),
         lambda: eng.submit(te.Request(np.arange(3), deadline_steps=4)),
