@@ -30,7 +30,18 @@ result.  Phases, any failure of which exits non-zero:
    compute fault once, quarantine exactly the owner of every KV flip, and
    leave survivors bitwise equal to an unfaulted oracle; (d) a weight flip
    must raise ``SDCUnlocalizedError`` before anything is emitted;
-5. check one full-width decode step through the kernels against the plain
+5. the paper's CONV nest: every CONV layer of AlexNet, VGG-16 and
+   GoogLeNet (``core/networks.py``) at their published shapes and the
+   paper's batch of 16, random bf16 inputs from a seeded generator, through
+   ``kernels.conv2d.ops.conv2d``; the stride-1 layers run the CUDA kernel
+   with the tile the blocking search picks for the H100 (the kernel's
+   launch count over the phase must be one per stride-1 layer), the two
+   strided first layers the plain oracle, as the reference routes them.
+   Each kernel result is held against the plain version; per distinct
+   shape the search's tile and seconds, the kernel's median time with a
+   cold L2, its TFLOP/s, the bound, the plain version's time and cuDNN's
+   (``F.conv2d`` on channels_last tensors, TF32 off) are printed;
+6. check one full-width decode step through the kernels against the plain
    path on the card, then print the ``kernels`` summary and, last, the
    ``{"ok": true, ...}`` line.
 """
@@ -40,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -48,8 +60,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 2**20
 MAX_LEN, SLOTS, BS, PREFIX = 1024, 8, 16, 256
 
@@ -79,11 +89,15 @@ def _setup():
 
 torch = _setup()
 
+from repro_torch import hw  # noqa: E402
 from repro_torch.arch.model_zoo import build  # noqa: E402
 from repro_torch.arch import layers as L  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
+from repro_torch.core import networks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import abft  # noqa: E402
+from repro_torch.kernels.conv2d import conv2d as conv  # noqa: E402
+from repro_torch.kernels.conv2d import ops as convops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_attention as dec  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
 from repro_torch.kernels.matmul import ops as mmops  # noqa: E402
@@ -99,6 +113,7 @@ WRAPPERS = {
     "flash_decode_paged": dec.flash_decode_paged_cuda,
     "gemm_bf16": mm.matmul_cuda,
     "gemm_bf16_abft": mm.matmul_abft_cuda,
+    "conv2d": conv.conv2d_cuda,
 }
 KERNEL_INFO = {
     "flash_decode": dict(
@@ -113,6 +128,9 @@ KERNEL_INFO = {
     "gemm_bf16_abft": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/matmul.cu",
         replaces="src/repro/kernels/matmul/matmul.py:78"),
+    "conv2d": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/conv2d.cu",
+        replaces="src/repro/kernels/conv2d/conv2d.py:68"),
 }
 # the five projection GEMMs of smollm-360m: (K, N, B transposed)
 GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
@@ -131,9 +149,9 @@ def card_line() -> str:
 _flush_buf = None
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, each after the
-    L2 cache was overwritten (the serve path finds its weights and KV
+def time_samples(fn, iters: int = 20) -> list[float]:
+    """Device time in ms of ``fn`` in each of ``iters`` launches, each after
+    the L2 cache was overwritten (the serve path finds its weights and KV
     cold: a decode step streams far more than 50 MB).  A spin kernel
     before the start event keeps the card busy while the host enqueues
     ``fn``, so the host's launch overhead stays out of the reading."""
@@ -142,7 +160,7 @@ def time_ms(fn, iters: int = 20) -> float:
         _flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=DEV)
     for _ in range(2):
         fn()
-    total = 0.0
+    out = []
     for _ in range(iters):
         _flush_buf.zero_()
         torch.cuda._sleep(1_000_000)  # about half a millisecond of spinning
@@ -152,12 +170,17 @@ def time_ms(fn, iters: int = 20) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Mean of :func:`time_samples`."""
+    return statistics.fmean(time_samples(fn, iters))
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    t_b, t_f = nbytes / hw.HBM_BYTES_PER_S * 1e3, flops / hw.BF16_FLOPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -646,6 +669,153 @@ def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) 
     return out
 
 
+CONV_BATCH = 16  # the paper's batch for its CNNs (core/networks.py)
+
+
+def conv_layers() -> list[tuple]:
+    """(network, layer, stride, bounds) of every CONV layer of the paper's
+    AlexNet, VGG-16 and GoogLeNet tables at their published shapes."""
+    out = []
+    for net in ("alexnet", "vgg16", "googlenet"):
+        for nest in getattr(networks, net)(CONV_BATCH):
+            b = nest.bounds
+            if b["X"] * b["Y"] * b["FX"] * b["FY"] == 1:
+                continue  # a fully connected layer
+            out.append((net, nest.name, nest.tensor("I").coupled["X"][1], dict(b)))
+    return out
+
+
+def conv_phase(totals: dict, results: dict) -> dict:
+    """Phase 5 of the module docstring."""
+    layers = conv_layers()
+    shapes: dict[tuple, dict] = {}
+    print("-- tiles from the blocking search on the (SMEM, HBM) hierarchy (set-up, "
+          "outside every timed window)", flush=True)
+    for net, name, stride, b in layers:
+        key = (b["X"], b["Y"], b["C"], b["K"], b["FX"], b["FY"])
+        if stride != 1:
+            continue
+        if key in shapes:
+            shapes[key]["layers"].append(f"{net}/{name}")
+            continue
+        t0 = time.perf_counter()
+        tiles = convops.choose_conv_blocks(CONV_BATCH, *key)
+        secs = time.perf_counter() - t0
+        shapes[key] = dict(layers=[f"{net}/{name}"], tiles=tiles, search_s=secs)
+        print(f"{net}/{name} X=Y={b['X']} C={b['C']} K={b['K']} F={b['FX']}x{b['FY']}: "
+              f"tile (bx,by,bc,bk)=({tiles.bx},{tiles.by},{tiles.bc},{tiles.bk}), "
+              f"search {secs:.3f} s, smem {tiles.smem_bytes(b['FX'], b['FY'])} B, "
+              f"{tiles.warp_tiles()} warp tiles", flush=True)
+
+    g = torch.Generator(device=DEV).manual_seed(7)
+    data = []
+    for net, name, stride, b in layers:
+        x = torch.randn((CONV_BATCH, (b["X"] - 1) * stride + b["FX"],
+                         (b["Y"] - 1) * stride + b["FY"], b["C"]),
+                        generator=g, device=DEV).bfloat16()
+        w = torch.randn((b["FX"], b["FY"], b["C"], b["K"]), generator=g, device=DEV).bfloat16()
+        data.append((x, w))
+
+    print("-- the main path: ops.conv2d on every CONV layer", flush=True)
+    for wr in WRAPPERS.values():
+        wr.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [convops.conv2d(x, w, stride=stride)
+            for (x, w), (_, _, stride, _) in zip(data, layers)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: wr.launches for n, wr in WRAPPERS.items()}
+    n_stride1 = sum(1 for layer in layers if layer[2] == 1)
+    if launches["conv2d"] != n_stride1 or launches["conv2d"] <= 0:
+        fail(f"conv2d: {launches['conv2d']} kernel launches over {n_stride1} stride-1 layers")
+    if any(c for n, c in launches.items() if n != "conv2d"):
+        fail(f"conv phase launched other kernels: {launches}")
+    totals["conv2d"] += launches["conv2d"]
+    print(f"{len(layers)} CONV layers in {wall:.3f} s (host clock), conv2d launched "
+          f"{launches['conv2d']} times ({n_stride1} stride-1 layers x 1)", flush=True)
+
+    print("-- each layer against the plain version (tolerance per element: one bf16 ulp "
+          "of the element + 1e-3 of the output's max |value|)", flush=True)
+    max_err = 0.0
+    for (x, w), out, (net, name, stride, b) in zip(data, outs, layers):
+        shape = (CONV_BATCH, b["X"], b["Y"], b["K"])
+        if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+            fail(f"conv {net}/{name}: output {tuple(out.shape)} (want {shape}) or not finite")
+        if stride != 1:
+            print(f"{net}/{name}: routed to plain (stride {stride})", flush=True)
+            continue
+        key = (b["X"], b["Y"], b["C"], b["K"], b["FX"], b["FY"])
+        want = conv.conv2d_plain(x, w, shapes[key]["tiles"]).float()
+        err = (out.float() - want).abs()
+        # both sum in fp32 in other orders and round once to bf16
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+        tol = ulp + 1e-3 * float(want.abs().max())
+        n_bad = int((err > tol).sum())
+        if n_bad:
+            fail(f"conv {net}/{name}: {n_bad} elements beyond tolerance "
+                 f"(max |diff| {float(err.max()):.3e})")
+        max_err = max(max_err, float(err.max()))
+        print(f"{net}/{name}: max |diff| {float(err.max()):.3e}, within tolerance", flush=True)
+        del want, err, ulp, tol
+    del outs
+
+    print("-- per distinct shape: times with a cold L2 (kernel and cuDNN: median of 20, "
+          "cuDNN with TF32 off; plain: mean of 3)", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    rows = []
+    for (x, w), (net, name, stride, b) in zip(data, layers):
+        key = (b["X"], b["Y"], b["C"], b["K"], b["FX"], b["FY"])
+        if stride != 1 or "ms" in shapes[key]:
+            continue
+        sh = shapes[key]
+        tiles = sh["tiles"]
+        xn = x.permute(0, 3, 1, 2)  # NHWC storage = NCHW channels_last
+        wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        flops = 2.0 * CONV_BATCH * b["X"] * b["Y"] * b["C"] * b["K"] * b["FX"] * b["FY"]
+        nbytes = 2 * (x.numel() + w.numel() + CONV_BATCH * b["X"] * b["Y"] * b["K"])
+        b_ms, b_by = bound_ms(nbytes, flops)
+        sh.update(
+            ms=statistics.median(time_samples(lambda x=x, w=w, t=tiles: conv.conv2d_cuda(x, w, t))),
+            plain_ms=time_ms(lambda x=x, w=w, t=tiles: conv.conv2d_plain(x, w, t), iters=3),
+            library_ms=statistics.median(
+                time_samples(lambda xn=xn, wn=wn: torch.nn.functional.conv2d(xn, wn))),
+            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        )
+        sh["tflops"] = flops / sh["ms"] / 1e9
+        rows.append(dict(shape=dict(X=b["X"], Y=b["Y"], C=b["C"], K=b["K"], FX=b["FX"],
+                                    FY=b["FY"]),
+                         tiles=dataclasses.asdict(tiles),
+                         **{k: v for k, v in sh.items() if k != "tiles"}))
+        print(f"{','.join(sh['layers'])} (X=Y={b['X']} C={b['C']} K={b['K']} "
+              f"F={b['FX']}x{b['FY']}): tile ({tiles.bx},{tiles.by},{tiles.bc},{tiles.bk}) "
+              f"search {sh['search_s']:.3f} s; ms={sh['ms']:.4f} ({sh['tflops']:.1f} TFLOP/s) "
+              f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={sh['plain_ms']:.4f} "
+              f"library_ms={sh['library_ms']:.4f}", flush=True)
+    del data
+
+    # the pass: every stride-1 layer once (shapes that repeat count each time)
+    def total(k):
+        return sum(sh[k] * len(sh["layers"]) for sh in shapes.values())
+
+    by_flops = total("flops") / hw.BF16_FLOPS_PER_S >= total("bytes") / hw.HBM_BYTES_PER_S
+    results["conv2d"] = dict(
+        max_abs_err=max_err, ms=total("ms"), plain_ms=total("plain_ms"),
+        library_ms=total("library_ms"), bound_ms=total("bound_ms"),
+        bound_by="operations" if by_flops else "bytes",
+        shape=f"sum over the {n_stride1} stride-1 CONV layers of AlexNet, VGG-16 and "
+              f"GoogLeNet at batch {CONV_BATCH}",
+    )
+    print(f"conv2d over the pass ({n_stride1} layers, {total('flops') / 1e12:.3f} TFLOP): "
+          f"ms={results['conv2d']['ms']:.4f} ({total('flops') / results['conv2d']['ms'] / 1e9:.1f} "
+          f"TFLOP/s) bound_ms={results['conv2d']['bound_ms']:.4f} "
+          f"plain_ms={results['conv2d']['plain_ms']:.4f} "
+          f"library_ms={results['conv2d']['library_ms']:.4f}", flush=True)
+    return dict(layers=[dict(net=n, layer=m, stride=s) for n, m, s, _ in layers],
+                launches=launches["conv2d"], main_path_wall_s=wall, shapes=rows)
+
+
 def check_decode_step(cfg, params) -> float:
     """One full-width decode step through the kernels against the plain
     path (torch.matmul + the masked dense attention) on the same caches."""
@@ -724,6 +894,9 @@ def main() -> None:
     print("== SDC defense (abft), full width, paged KV", flush=True)
     sdc = sdc_phase(cfg, params, reqs, runs[-1], tokens[("paged", "pallas")], totals)
 
+    print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
+    convs = conv_phase(totals, results)
+
     print("== reference check", flush=True)
     check_decode_step(cfg, params)
 
@@ -732,7 +905,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
-             serve=runs, decode_profile=prof, sdc=sdc,
+             serve=runs, decode_profile=prof, sdc=sdc, conv=convs,
              seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [

@@ -23,8 +23,11 @@ from repro_torch.kernels.flash_attention.decode_attention import (
 def _pick_decode_bk(S: int) -> int:
     """KV split for contiguous decode: the largest divisor of the cache
     extent S that is at most 64, so the cache is never padded and the
-    ragged skip stays fine-grained.  (The Hopper tile search is ROADMAP
-    A6.)"""
+    ragged skip stays fine-grained.  This is the reference's rule for its
+    jnp twin (``repro/kernels/flash_attention/ops.py:137-158``): there the
+    search's KV tile is capped at 64 and floored at 8 before it steps down
+    to a divisor, and a TPU-aligned tile is at least 128 wide, so the cap
+    always wins.  (The Hopper tile search is ROADMAP A6c.)"""
     b = max(1, min(64, S))
     while S % b:
         b -= 1

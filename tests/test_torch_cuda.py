@@ -13,7 +13,9 @@ scale); the GEMM to one bf16 ulp of the output's scale.  Paged decode equals con
 checksum GEMM's product equals the GEMM's bitwise; its checksums are held
 to the plain version's within the ABFT tolerance
 ``ABFT_ATOL + ABFT_RTOL * (e^T|A|)|B|`` (fp32 sums in other orders) and
-repeat bit for bit.
+repeat bit for bit.  The conv2d kernel is held to its plain version within
+one bf16 ulp of each element plus 1e-3 of the output's largest magnitude
+(both sum in fp32, in other orders, and round once).
 """
 
 import dataclasses
@@ -22,9 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import hw
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.registry import get
 from repro_torch.kernels import abft
+from repro_torch.kernels.conv2d import conv2d as cv
+from repro_torch.kernels.conv2d import ops as convops
 from repro_torch.kernels.flash_attention import decode_attention as dec
 from repro_torch.kernels.matmul import ops as mmops
 from repro_torch.kernels.matmul.matmul import (
@@ -224,3 +229,65 @@ def test_engine_on_the_card_paged_equals_contiguous(cuda, matmul):
         assert kern.launches > 0
         assert (matmul_cuda.launches > 0) == (matmul == "pallas")
     assert outs["paged"] == outs["contiguous"]
+
+
+def _conv_tol(want):
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+    return ulp + 1e-3 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,K,FX,FY,tiles", [
+    (2, 10, 12, 3, 5, 3, 3, None),                    # C = 3, K = 5: padded to 16
+    (1, 30, 29, 64, 64, 1, 1, None),                  # 1x1
+    (2, 17, 19, 40, 72, 5, 5, None),                  # 5x5, ragged C and K
+    (1, 16, 20, 32, 48, 3, 1, None),                  # non-square filters
+    (1, 20, 16, 32, 48, 1, 3, None),
+    (1, 13, 11, 24, 40, 3, 2, (4, 5, 16, 32)),        # Ho, Wo not tile multiples
+    (3, 9, 9, 96, 256, 3, 3, (7, 7, 32, 128)),
+])
+def test_conv2d_kernel_matches_plain(cuda, B, H, W, C, K, FX, FY, tiles):
+    g = torch.Generator(device=cuda).manual_seed(B * H + C + K + FX * 7 + FY)
+    x = _randn((B, H, W, C), g, cuda)
+    w = _randn((FX, FY, C, K), g, cuda)
+    t = cv.ConvTiles(*tiles) if tiles else convops.choose_conv_blocks(
+        B, H - FX + 1, W - FY + 1, C, K, FX, FY)
+    got = cv.conv2d_cuda(x, w, t)
+    again = cv.conv2d_cuda(x, w, t)
+    torch.cuda.synchronize()
+    want = cv.conv2d_plain(x, w, t).float()
+    assert got.shape == (B, H - FX + 1, W - FY + 1, K)
+    assert bool(((got.float() - want).abs() <= _conv_tol(want)).all())
+    assert torch.equal(got, again)  # one fixed order in one block: the same bits
+    # the oracle (another route, fp32 throughout) agrees as well
+    ref = cv.conv2d_plain(x.float(), w.float(), t)
+    assert bool(((got.float() - ref).abs() <= _conv_tol(ref)).all())
+
+
+@pytest.mark.cuda
+def test_conv2d_ops_routes_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, w = _randn((2, 15, 15, 16), g, cuda), _randn((3, 3, 16, 32), g, cuda)
+    cv.conv2d_cuda.launches = 0
+    got = convops.conv2d(x, w)
+    assert cv.conv2d_cuda.launches == 1
+    strided = convops.conv2d(x, w, stride=2)  # the plain oracle, as the reference routes it
+    assert cv.conv2d_cuda.launches == 1 and strided.shape == (2, 7, 7, 32)
+    want = cv.conv2d_plain(x, w, convops.choose_conv_blocks(2, 13, 13, 16, 32, 3, 3)).float()
+    assert bool(((got.float() - want).abs() <= _conv_tol(want)).all())
+    with pytest.raises(ValueError):
+        convops.conv2d(x.float(), w.float())  # the kernel takes bf16 only
+
+
+@pytest.mark.cuda
+def test_conv2d_refused_launch_raises(cuda):
+    """A tile whose shared memory is past the 227 KB a block may have is
+    refused at launch: the wrapper raises instead of returning garbage."""
+    x = torch.zeros((1, 40, 40, 512), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((5, 5, 512, 128), dtype=torch.bfloat16, device=cuda)
+    t = cv.ConvTiles(1, 1, 512, 128)
+    assert t.smem_bytes(5, 5) > hw.SMEM_PER_BLOCK_BYTES
+    with pytest.raises(RuntimeError):
+        cv.conv2d_cuda(x, w, t)
+    with pytest.raises(ValueError):  # more accumulator tiles than the block holds
+        cv.conv2d_cuda(x, w, cv.ConvTiles(16, 17, 16, 64))

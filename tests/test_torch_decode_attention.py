@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels.flash_attention import decode_attention as jdec  # noqa: E402
+from repro.kernels.flash_attention import ops as jops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_attention as tdec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as tops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as tref  # noqa: E402
@@ -160,6 +161,20 @@ def test_pick_decode_bk_divides_and_caps():
         b = tops._pick_decode_bk(S)
         assert S % b == 0 and 1 <= b <= 64
     assert tops._pick_decode_bk(1024) == 64
+
+
+@pytest.mark.parametrize("S,G", [(96, 3), (100, 1), (1024, 2)])
+def test_unset_decode_split_matches_reference(S, G):
+    """With no split given, both packages pick the same one: the port's
+    entry point equals the reference's in fp32 without ``bk`` pinned."""
+    B, KV, d = 3, 2, 16
+    q, k, v = _inputs(B, S, KV, G, d, seed=S + G)
+    lengths = np.asarray([1, S // 3, S], np.int32)
+    want = jops.decode_attention(
+        *(jnp.asarray(a) for a in (q, k, v, lengths)), impl="xla"
+    )
+    got = tops.decode_attention(*(torch.from_numpy(a) for a in (q, k, v, lengths)))
+    np.testing.assert_allclose(_np(got), _np(want), **FP32)
 
 
 def test_wrappers_reject_other_devices_and_impls():
