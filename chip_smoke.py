@@ -41,9 +41,24 @@ result.  Phases, any failure of which exits non-zero:
    shape the search's tile and seconds, the kernel's median time with a
    cold L2, its TFLOP/s, the bound, the plain version's time and cuDNN's
    (``F.conv2d`` on channels_last tensors, TF32 off) are printed;
-6. check one full-width decode step through the kernels against the plain
-   path on the card, then print the ``kernels`` summary and, last, the
-   ``{"ok": true, ...}`` line.
+6. RWKV-6 at full width (rwkv6-1.6b: 24 layers, d_model 2048, 32 WKV
+   heads of 64, bf16, random weights from a seeded generator, with a
+   seeded data-dependent decay: ``w0`` spread over [-6, -1] and
+   ``w_lora_b`` ~ N(0, 1) in place of init's constant decay): (a) the WKV-6
+   kernel against its plain version at the decode (8 rows x 32 heads, one
+   step) and prefill (1 x 32, 256 steps) shapes, within 1e-5 of the
+   output's and the state's scale; (b) their times with a cold L2 and the
+   bound (bytes over 3.35 TB/s or 7 fp32 operations per state element and
+   step over the 66.9 TFLOP/s CUDA-core peak); (c) 16 requests (prompts of
+   16-256 tokens, 48-64 greedy new tokens, 8 slots, ``max_len`` 1024)
+   served with ``matmul="xla"`` and ``"pallas"``: every request finished,
+   the kernel launched exactly 24 times per prefill call and per decode
+   step; (d) on layer 0's activations of one prefill and one decode step,
+   ``ops.wkv6`` against the plain version; (e) one profiled decode step's
+   card busy share and the kernel's share of it;
+7. check one full-width smollm-360m decode step through the kernels against
+   the plain path on the card, then print the ``kernels`` summary and, last,
+   the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -92,6 +107,8 @@ torch = _setup()
 from repro_torch import hw  # noqa: E402
 from repro_torch.arch.model_zoo import build  # noqa: E402
 from repro_torch.arch import layers as L  # noqa: E402
+from repro_torch.arch import rwkv as R  # noqa: E402
+from repro_torch.arch.transformer import Model, _index  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
 from repro_torch.core import networks  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -99,6 +116,8 @@ from repro_torch.kernels import abft  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d as conv  # noqa: E402
 from repro_torch.kernels.conv2d import ops as convops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_attention as dec  # noqa: E402
+from repro_torch.kernels.linear_scan import linear_scan as ls  # noqa: E402
+from repro_torch.kernels.linear_scan import ops as lsops  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
 from repro_torch.kernels.matmul import ops as mmops  # noqa: E402
 from repro_torch.serve import chaos, kvcache  # noqa: E402
@@ -114,6 +133,7 @@ WRAPPERS = {
     "gemm_bf16": mm.matmul_cuda,
     "gemm_bf16_abft": mm.matmul_abft_cuda,
     "conv2d": conv.conv2d_cuda,
+    "wkv6": ls.wkv6_cuda,
 }
 KERNEL_INFO = {
     "flash_decode": dict(
@@ -131,6 +151,9 @@ KERNEL_INFO = {
     "conv2d": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/conv2d.cu",
         replaces="src/repro/kernels/conv2d/conv2d.py:68"),
+    "wkv6": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
+        replaces="src/repro/kernels/linear_scan/linear_scan.py:112"),
 }
 # the five projection GEMMs of smollm-360m: (K, N, B transposed)
 GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
@@ -179,8 +202,11 @@ def time_ms(fn, iters: int = 20) -> float:
     return statistics.fmean(time_samples(fn, iters))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / hw.HBM_BYTES_PER_S * 1e3, flops / hw.BF16_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = hw.BF16_FLOPS_PER_S) -> tuple[float, str]:
+    """The least time for the work: bytes over the HBM rate or operations
+    over ``peak`` (the bf16 tensor-core rate unless the work is fp32 on the
+    CUDA cores), whichever is larger."""
+    t_b, t_f = nbytes / hw.HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -470,18 +496,21 @@ def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str
 
 
 class HostTimer:
-    """Host wall time spent inside some functions, by name: wraps each
-    attribute ``obj.name`` in place (undone by :meth:`restore`).  The step
-    is host-bound, so the host time a part of it takes is its cost."""
+    """Host wall time spent inside some functions, and their calls, by
+    name: wraps each attribute ``obj.name`` in place (undone by
+    :meth:`restore`).  The step is host-bound, so the host time a part of
+    it takes is its cost."""
 
     def __init__(self, targets: dict):
         self.ms = {k: 0.0 for k in targets}
+        self.calls = {k: 0 for k in targets}
         self._saved = []
         for key, (obj, name) in targets.items():
             fn = getattr(obj, name)
             self._saved.append((obj, name, fn))
 
             def timed(*a, _fn=fn, _key=key, **kw):
+                self.calls[_key] += 1
                 t = time.perf_counter()
                 try:
                     return _fn(*a, **kw)
@@ -496,14 +525,16 @@ class HostTimer:
 
 
 def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous",
-                   abft_mode: str = "off") -> dict:
+                   abft_mode: str = "off", focus: str | None = None) -> dict:
     """Where a decode step's time goes on the kernel path
     (``matmul="pallas"``): host wall time per step without the profiler,
     then the card's busy time per step from ``torch.profiler`` (the union
     of the CUDA kernels' intervals) and the kernels that take most of it.
     With ABFT on, also the host time per step inside the attention
     fingerprint, the checked GEMMs (``AbftTrace.mm`` in all), the verdict
-    op ``ops.matmul_abft`` and the checksum kernel's wrapper."""
+    op ``ops.matmul_abft`` and the checksum kernel's wrapper.  With
+    ``focus``, also the card time per step of the kernels whose name holds
+    it, and their share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -551,20 +582,28 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    focus_ms = None
+    if focus is not None:
+        focus_ms = sum(t for n, t in by_name.items() if focus in n) / steps / 1e3
     res = dict(
         layout=layout, abft=abft_mode,
         step_ms=step_ms, device_busy_ms_per_step=busy / steps / 1e3,
         busy_share=busy / steps / 1e3 / step_ms if spans else None,
         top_kernels_ms_per_step={n[:80]: t / steps / 1e3 for n, t in top},
-        host_ms_per_step=host_parts,
+        host_ms_per_step=host_parts, focus=focus, focus_ms_per_step=focus_ms,
+        focus_share_of_busy=focus_ms / (busy / steps / 1e3) if focus_ms is not None and spans
+        else None,
     )
-    print(f"decode step ({layout}, pallas, abft={abft_mode}, {SLOTS} live rows): "
+    print(f"decode step ({cfg.name}, {layout}, pallas, abft={abft_mode}, {SLOTS} live rows): "
           f"{step_ms:.2f} ms wall, card busy {res['device_busy_ms_per_step']:.3f} ms per step "
           f"(share of wall {res['busy_share']})", flush=True)
     for n, t in res["top_kernels_ms_per_step"].items():
         print(f"  {t:.3f} ms/step  {n}")
     for n, t in (host_parts or {}).items():
         print(f"  host {t:.2f} ms/step inside {n}")
+    if focus is not None:
+        print(f"  {focus}: {focus_ms:.3f} ms/step of card time, share of busy "
+              f"{res['focus_share_of_busy']}", flush=True)
     return res
 
 
@@ -816,6 +855,172 @@ def conv_phase(totals: dict, results: dict) -> dict:
                 launches=launches["conv2d"], main_path_wall_s=wall, shapes=rows)
 
 
+# ------------------------------------------------------------- rwkv phase --
+
+WKV_TOL = 1e-5  # of the output's (and the state's) largest magnitude
+WKV_SHAPES = {"decode": (SLOTS, 32, 1), "prefill": (1, 32, 256)}  # (B, H, T)
+
+
+def wkv_inputs(B: int, H: int, T: int, g) -> tuple:
+    """Seeded fp32 operands at the model's layout: (B, H, T, 64) views of
+    (B, T, H, 64) streams, a decay w in (0, 1) that varies per step and
+    channel, u ~ N(0, 0.5) and a state s0 ~ N(0, 1)."""
+    def stream():
+        return torch.randn((B, T, H, 64), generator=g, device=DEV).transpose(1, 2)
+
+    r, k, v = stream(), stream(), stream()
+    w = torch.exp(-torch.exp(stream() - 1.0))
+    u = 0.5 * torch.randn((H, 64), generator=g, device=DEV)
+    s0 = torch.randn((B, H, 64, 64), generator=g, device=DEV)
+    return r, k, v, w, u, s0
+
+
+def wkv_err(got, want) -> tuple[float, float]:
+    """(max |diff| of out and state, the tolerance from their scales);
+    fails beyond it."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    tol = WKV_TOL * max(float(b.abs().max()) for b in want)
+    return err, tol
+
+
+def check_wkv6(results: dict) -> None:
+    """(a) and (b) of phase 6: the WKV-6 kernel against its plain version
+    at the serve path's decode and prefill shapes, and its times."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain einsum in full fp32
+    g = torch.Generator(device=DEV).manual_seed(8)
+    rows = {}
+    for case, (B, H, T) in WKV_SHAPES.items():
+        args = wkv_inputs(B, H, T, g)
+        got = ls.wkv6_cuda(*args)
+        want = ls.wkv6_plain(*args)
+        torch.cuda.synchronize()
+        err, tol = wkv_err(got, want)
+        if not err <= tol:
+            fail(f"wkv6 {case} B={B} H={H} T={T}: max err {err:.3e} > {tol:.3e}")
+        # each input read once (r, k, v, w, u, s0), each output written once
+        # (out, s_T); 7 fp32 operations per state element per step
+        nbytes = 4 * (5 * B * H * T * 64 + H * 64 + 2 * B * H * 64 * 64)
+        flops = 7.0 * B * H * T * 64 * 64
+        b_ms, b_by = bound_ms(nbytes, flops, hw.FP32_FLOPS_PER_S)
+        rows[case] = row = dict(
+            B=B, H=H, T=T, max_abs_err=err, tolerance=tol,
+            ms=time_ms(lambda a=args: ls.wkv6_cuda(*a)),
+            plain_ms=time_ms(lambda a=args: ls.wkv6_plain(*a), iters=5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+        )
+        print(f"wkv6 {case} B={B} H={H} T={T}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.5f} "
+              f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); "
+              f"library_ms: none (no single PyTorch call computes the recurrence)",
+              flush=True)
+    # the summary line carries the decode shape, the call the serve loop
+    # makes most (24 per step); both shapes are in build/chip_smoke.json
+    results["wkv6"] = dict(rows["decode"], shape="decode: B=8 H=32 T=1 D=64", cases=rows)
+
+
+def rwkv_params(cfg) -> dict:
+    """Full-width random weights from a seeded generator, with a seeded
+    data-dependent decay in place of init's constant one."""
+    params = build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    wkv = params["layers"]["wkv"]
+    wkv["w_lora_b"].copy_(torch.randn(wkv["w_lora_b"].shape, generator=g, device=DEV))
+    wkv["w0"].uniform_(-6.0, -1.0, generator=g)
+    return params
+
+
+def rwkv_workload(cfg, seed: int = 0) -> list:
+    """16 requests, prompts of 16-256 tokens and budgets of 48-64 new
+    tokens, all drawn from a seeded generator."""
+    rng = torch.Generator().manual_seed(seed)
+    lens = torch.randint(16, 257, (16,), generator=rng).tolist()
+    budgets = torch.randint(48, 65, (16,), generator=rng).tolist()
+    return [Request(torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype(np.int32),
+                    max_new=b, request_id=i)
+            for i, (n, b) in enumerate(zip(lens, budgets))]
+
+
+def check_rwkv_layer(cfg, params) -> dict:
+    """(d) of phase 6: ``ops.wkv6`` against the plain version on layer 0's
+    operands of a 200-token prefill and of the decode step after it."""
+    model = build(cfg)
+    p0 = _index(params["layers"], 0)
+    g = torch.Generator(device=DEV).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab, (1, 200), generator=g, device=DEV)
+    step = torch.randint(0, cfg.vocab, (1, 1), generator=g, device=DEV)
+    caches = kvcache.build_caches(cfg, 1, MAX_LEN, DEV)
+    out = {}
+    for case, tk in (("prefill", toks), ("decode", step)):
+        x = L.rmsnorm(p0["ln1"], L.embed(params["embed"], tk), cfg.norm_eps)
+        r, k, v, w, u, state, _ = R.wkv_inputs(p0["wkv"], cfg, x, _index(caches, 0))
+        views = [a.transpose(1, 2) for a in (r, k, v, w)]
+        got = lsops.wkv6(*views, u, state)
+        want = ls.wkv6_plain(*views, u, state)
+        torch.cuda.synchronize()
+        err, tol = wkv_err(got, want)
+        if not (err <= tol and all(bool(torch.isfinite(a).all()) for a in got)):
+            fail(f"rwkv layer 0 {case}: ops.wkv6 vs plain max err {err:.3e} > {tol:.3e}")
+        out[case] = dict(T=tk.shape[1], max_abs_err=err, tolerance=tol)
+        print(f"rwkv layer 0 {case} (T={tk.shape[1]}): ops.wkv6 vs plain max |diff| "
+              f"{err:.3e} (tol {tol:.3e})", flush=True)
+        if case == "prefill":
+            model.prefill(params, toks, caches)  # the state the decode step reads
+    return out
+
+
+def rwkv_phase(totals: dict, results: dict) -> dict:
+    """Phase 6 of the module docstring."""
+    print("-- (a, b) the kernel against its plain version, and its times", flush=True)
+    check_wkv6(results)
+    cfg = get("rwkv6-1.6b")
+    params = rwkv_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"-- (c) serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{R.rwkv_head_count(cfg)} heads of {R.HEAD_K}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}, {n_params / 1e9:.3f} B parameters", flush=True)
+    reqs = rwkv_workload(cfg)
+    serve_once(cfg, params, "contiguous", "xla", reqs[:2])  # warm-up, not kept
+    runs = []
+    for matmul in ("xla", "pallas"):
+        calls = HostTimer({"prefill": (Model, "prefill"), "decode": (Model, "decode_step")})
+        try:
+            res, _, eng = serve_once(cfg, params, "contiguous", matmul, reqs)
+        finally:
+            calls.restore()
+        want = cfg.n_layers * (calls.calls["prefill"] + calls.calls["decode"])
+        got = res["launches"]["wkv6"]
+        if got != want or got <= 0:
+            fail(f"rwkv/{matmul}: wkv6 launched {got} times, want {cfg.n_layers} x "
+                 f"({calls.calls['prefill']} prefill calls + {calls.calls['decode']} "
+                 f"decode steps) = {want}")
+        others = {n: c for n, c in res["launches"].items()
+                  if c and n not in ("wkv6", "gemm_bf16")}
+        if others or (res["launches"]["gemm_bf16"] > 0) != (matmul == "pallas"):
+            fail(f"rwkv/{matmul}: unexpected kernel launches {res['launches']}")
+        if eng.stats["admitted"] != len(reqs):
+            fail(f"rwkv/{matmul}: admitted {eng.stats['admitted']} of {len(reqs)}")
+        print(f"rwkv/{matmul}: wkv6 launched {got} = {cfg.n_layers} x "
+              f"({calls.calls['prefill']} prefill calls + {calls.calls['decode']} decode "
+              f"steps)", flush=True)
+        res.update(prefill_calls=calls.calls["prefill"], decode_steps=calls.calls["decode"])
+        runs.append(res)
+        for n, c in res["launches"].items():
+            totals[n] += c
+    print("-- (d) layer 0's real operands", flush=True)
+    layer = check_rwkv_layer(cfg, params)
+    print("-- (e) where a decode step's time goes", flush=True)
+    prof = profile_decode(cfg, params, reqs, focus="wkv6")
+    return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def check_decode_step(cfg, params) -> float:
     """One full-width decode step through the kernels against the plain
     path (torch.matmul + the masked dense attention) on the same caches."""
@@ -897,6 +1102,9 @@ def main() -> None:
     print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
     convs = conv_phase(totals, results)
 
+    print("== rwkv6-1.6b (full width, random weights) through the WKV-6 kernel", flush=True)
+    rwkv = rwkv_phase(totals, results)
+
     print("== reference check", flush=True)
     check_decode_step(cfg, params)
 
@@ -905,7 +1113,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
-             serve=runs, decode_profile=prof, sdc=sdc, conv=convs,
+             serve=runs, decode_profile=prof, sdc=sdc, conv=convs, rwkv=rwkv,
              seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [

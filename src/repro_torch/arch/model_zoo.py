@@ -1,7 +1,7 @@
 """build(config) -> model object; port of ``repro/arch/model_zoo.py``.
 
-The port runs the dense decoder-only family; every other family raises
-``NotImplementedError`` naming the ROADMAP item that ports it."""
+The port runs the dense decoder-only family and RWKV-6; every other family
+raises ``NotImplementedError`` naming the ROADMAP item that ports it."""
 
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense path; port of ``repro/arch/transformer.py``.
+"""Decoder-only LM, dense and RWKV-6 paths; port of
+``repro/arch/transformer.py``.
 
 One :class:`Model` per config exposing
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.arch import layers as L
+from repro_torch.arch import rwkv as R
 from repro_torch.configs.base import ModelConfig
 
 GLOBAL_WINDOW = 2**30  # "window" that never masks = global attention
@@ -43,15 +45,16 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet (the ROADMAP item that adds
-    it), or None for the dense path it does run."""
+    it), or None for the dense and RWKV-6 paths it does run."""
     if cfg.family == "encdec":
         return "encoder-decoder models are ROADMAP A10 (arch/encdec.py)"
     if cfg.family == "vlm":
         return "the VLM patch projection is ROADMAP A10"
     if cfg.moe is not None or cfg.family == "moe":
         return "MoE FFNs are ROADMAP A10 (arch/moe.py)"
-    if cfg.mixer != "attention" or cfg.family in ("ssm", "hybrid"):
-        return "recurrent mixers are ROADMAP A10 (arch/rwkv.py, arch/rglru.py)"
+    if cfg.family == "hybrid" or cfg.mixer == "rglru":
+        return ("recurrentgemma's hybrid backbone is ROADMAP A10b (arch/rglru.py, "
+                "ring caches)")
     if cfg.global_every:
         return "the local:global backbone (gemma3) is ROADMAP A3"
     return None
@@ -78,6 +81,15 @@ def attn_block_apply(
     return x + L.mlp(p["mlp"], cfg, z, dispatch)
 
 
+def rwkv_block_apply(
+    p: dict, cfg: ModelConfig, x: torch.Tensor, *, cache: dict | None,
+    dispatch: L.Dispatch = L.PLAIN,
+) -> torch.Tensor:
+    h, _ = R.rwkv_mix(p["wkv"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps), cache)
+    x = x + h
+    return x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
+
+
 def _index(tree, i: int):
     """Layer ``i`` of a layer-stacked dict tree (views, not copies)."""
     if isinstance(tree, dict):
@@ -98,14 +110,20 @@ class Model:
     def init(self, generator: torch.Generator, device=None) -> dict:
         """Random parameters from the reference's distributions (normal
         0.02 embeddings, normal 0.02/sqrt(d) projections, unit norm
-        scales), drawn from ``generator``, which must live on ``device``.
+        scales; for RWKV-6 also ``mu`` 0.5, ``w0`` -3, a zero ``w_lora_b``
+        and ``u`` normal 0.5 in fp32), drawn from ``generator``, which must
+        live on ``device``.
         The draws differ from ``jax.random``'s; tests that compare the two
         packages convert one tree with ``repro_torch.bridge``."""
         cfg = self.cfg
         lead = (cfg.n_layers,)
+        if cfg.mixer == "rwkv6":
+            mixer = ("wkv", R.rwkv_init(generator, cfg, device, lead))
+        else:
+            mixer = ("attn", L.attention_init(generator, cfg, device, lead))
         layers = {
             "ln1": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
-            "attn": L.attention_init(generator, cfg, device, lead),
+            mixer[0]: mixer[1],
             "ln2": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
             "mlp": L.mlp_init(generator, cfg, device, lead),
         }
@@ -125,6 +143,14 @@ class Model:
         dispatch: L.Dispatch,
     ) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.mixer == "rwkv6":
+            for i in range(cfg.n_layers):
+                x = rwkv_block_apply(
+                    _index(params["layers"], i), cfg, x,
+                    cache=None if caches is None else _index(caches, i),
+                    dispatch=dispatch,
+                )
+            return x
         wins = layer_windows(cfg)
         # the ragged-decode ring invariant (ring extent <= window) checked
         # once over all layers and passed down as a hint

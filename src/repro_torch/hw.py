@@ -2,8 +2,8 @@
 
 The H100 counterparts of the reference's TPU constants
 (``repro/core/energy.py:192-196``), from NVIDIA's H100 data sheet and
-the CUDA documentation: dense tensor-core peak, HBM3 rate and size, SM
-count and shared memory.  ``chip_smoke.py`` takes its roofline rates from here.
+the CUDA documentation: dense tensor-core peak, fp32 CUDA-core peak, HBM3
+rate and size, SM count and shared memory.  ``chip_smoke.py`` takes its roofline rates from here.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ SMEM_RESERVED_PER_BLOCK_BYTES = 1024  # the system's share of each block
 HBM_BYTES_PER_S = 3.35e12           # HBM3
 HBM_BYTES = 80 * 1024**3
 BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 66.9e12          # fp32 on the CUDA cores (no tensor cores)
 MMA_ALIGN = 16                      # bf16 mma.sync k-depth and m-height
 
 # Shared memory one block of a kernel tiled by the search may use: half of

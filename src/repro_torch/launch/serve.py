@@ -2,6 +2,7 @@
 ``repro/launch/serve.py`` without the flags of unported features.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
 
 Generates a mixed-length synthetic workload with random weights, streams
 tokens through the engine, and reports throughput plus per-token latency.

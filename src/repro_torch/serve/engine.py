@@ -5,11 +5,13 @@ The decode batch is a fixed ring of ``batch`` KV slots and requests flow
 through it continuously:
 
   * **admission**: waiting requests are prefilled (grouped by padded
-    length) and scattered into free slots -- or, under the paged layout,
-    packed into pool blocks with prefix sharing and copy-on-write;
+    length; by exact length for RWKV-6, whose recurrent state pad tokens
+    would pollute) and scattered into free slots -- or, under the paged
+    layout (attention models only), packed into pool blocks with prefix
+    sharing and copy-on-write;
   * **decode**: every step advances all slots by one token
     (``Model.decode_step`` -> ``layers.multihead_attention`` -> ragged
-    flash-decoding);
+    flash-decoding, or ``rwkv.rwkv_mix`` -> the WKV-6 kernel);
   * **eviction + backfill**: a slot frees the moment its request finishes
     and is refilled from the queue on the next step.
 

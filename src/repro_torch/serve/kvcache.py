@@ -1,11 +1,12 @@
 """Slot-based batched KV cache for the continuous-batching engine; port of
-``repro/serve/kvcache.py`` (dense path plus the paged layout).
+``repro/serve/kvcache.py`` (dense and RWKV-6 paths plus the paged layout).
 
 Contiguous layout: one ``(slots, max_len)`` KV ring per layer, stacked
-over layers.  Paged layout: per-layer block pools
-``(num_blocks, block_size, KV, hd)``, per-row block tables and lengths,
-with ownership (refcounts, free list, radix prefix index) kept host-side
-in :class:`BlockPool`.
+over layers; for RWKV-6 one recurrent state ``(slots, H, 64, 64)`` fp32
+and one token-shift row ``(slots, D)`` per layer.  Paged layout:
+per-layer block pools ``(num_blocks, block_size, KV, hd)``, per-row block
+tables and lengths, with ownership (refcounts, free list, radix prefix
+index) kept host-side in :class:`BlockPool`.
 
 Every device operation here writes its cache **in place** and returns the
 same dict: the reference expresses these as donated scatters that XLA
@@ -17,16 +18,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.arch import layers as L
+from repro_torch.arch import rwkv as R
 from repro_torch.arch.transformer import GLOBAL_WINDOW, layer_windows
 from repro_torch.configs.base import ModelConfig
 
 
 def build_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """Decode caches for ``batch`` slots of ``max_len`` positions each,
-    stacked over layers: leaves ``(L, batch, size, ...)``."""
+    stacked over layers: leaves ``(L, batch, size, ...)``, or for RWKV-6
+    ``state`` ``(L, batch, H, 64, 64)`` and ``x_prev`` ``(L, batch, D)``."""
+    if cfg.mixer == "rwkv6":
+        return R.rwkv_init_cache(cfg, batch, device, lead=(cfg.n_layers,))
     if cfg.family not in ("dense", "vlm", "moe") or cfg.mixer != "attention":
         raise NotImplementedError(
-            f"{cfg.name}: recurrent and hybrid caches are ROADMAP A10"
+            f"{cfg.name}: hybrid caches are ROADMAP A10b"
         )
     if cfg.global_every:
         raise NotImplementedError(
@@ -69,7 +74,10 @@ def mask_prompt_tail(caches: dict, true_len: torch.Tensor) -> dict:
     """Invalidate entries a right-padded prefill wrote past the real prompt,
     in place: ``pos`` returns to the +1e9 empty sentinel and ``len`` rewinds
     to the true length.  ``true_len`` is per row ``(B,)``.  Valid only for
-    non-ring caches, where slot index == position."""
+    non-ring caches, where slot index == position.  Caches with neither
+    leaf (the recurrent ones) are left as they are."""
+    if "pos" not in caches:
+        return caches
     tl = true_len.to(torch.int32)
     pos = caches["pos"]
     idx = torch.arange(pos.shape[-1], dtype=torch.int32, device=pos.device)

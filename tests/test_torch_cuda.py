@@ -15,7 +15,11 @@ to the plain version's within the ABFT tolerance
 ``ABFT_ATOL + ABFT_RTOL * (e^T|A|)|B|`` (fp32 sums in other orders) and
 repeat bit for bit.  The conv2d kernel is held to its plain version within
 one bf16 ulp of each element plus 1e-3 of the output's largest magnitude
-(both sum in fp32, in other orders, and round once).
+(both sum in fp32, in other orders, and round once).  The WKV-6 kernel is
+held to its plain version within 1e-5 of the output's (and the state's)
+largest magnitude: both run in fp32, the kernel's sum over the key index in
+one fixed order with fused multiply-adds, the plain version's through an
+fp32 einsum (TF32 is off for matmuls by default).
 """
 
 import dataclasses
@@ -31,6 +35,7 @@ from repro_torch.kernels import abft
 from repro_torch.kernels.conv2d import conv2d as cv
 from repro_torch.kernels.conv2d import ops as convops
 from repro_torch.kernels.flash_attention import decode_attention as dec
+from repro_torch.kernels.linear_scan.linear_scan import wkv6_cuda, wkv6_plain
 from repro_torch.kernels.matmul import ops as mmops
 from repro_torch.kernels.matmul.matmul import (
     abft_block_rows,
@@ -291,3 +296,107 @@ def test_conv2d_refused_launch_raises(cuda):
         cv.conv2d_cuda(x, w, t)
     with pytest.raises(ValueError):  # more accumulator tiles than the block holds
         cv.conv2d_cuda(x, w, cv.ConvTiles(16, 17, 16, 64))
+
+
+def _wkv_inputs(B, H, T, gen, dev, bthd=False):
+    """Seeded fp32 streams with a decay w in (0, 1) that varies per step
+    and channel; with ``bthd`` the streams are (B, H, T, 64) views of
+    (B, T, H, 64) storage, as the model passes them."""
+    shape = (B, T, H, 64) if bthd else (B, H, T, 64)
+
+    def stream():
+        t = torch.randn(shape, generator=gen, device=dev)
+        return t.transpose(1, 2) if bthd else t
+
+    r, k, v = stream(), stream(), stream()
+    w = torch.exp(-torch.exp(stream() - 1.0))
+    u = 0.5 * torch.randn((H, 64), generator=gen, device=dev)
+    s0 = torch.randn((B, H, 64, 64), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _assert_wkv_close(got, want):
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        assert float((g_ - w_).abs().max()) <= 1e-5 * float(w_.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bthd", [False, True])
+@pytest.mark.parametrize("B,H,T", [(8, 32, 1), (1, 32, 256), (3, 2, 37), (2, 1, 0)])
+def test_wkv6_kernel_matches_plain(cuda, B, H, T, bthd):
+    g = torch.Generator(device=cuda).manual_seed(B * 1000 + H + T)
+    args = _wkv_inputs(B, H, T, g, cuda, bthd)
+    got = wkv6_cuda(*args)
+    again = wkv6_cuda(*args)
+    torch.cuda.synchronize()
+    if T > 1:
+        assert got[0].stride() == args[0].stride()  # out comes back in r's layout
+    if T:
+        _assert_wkv_close(got, wkv6_plain(*args))
+    else:
+        assert torch.equal(got[1], args[5])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_wkv6_updates_the_state_in_place(cuda):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    r, k, v, w, u, s0 = _wkv_inputs(4, 3, 9, g, cuda, bthd=True)
+    want = wkv6_cuda(r, k, v, w, u, s0)
+    state = s0.clone()
+    out, sT = wkv6_cuda(r, k, v, w, u, state, inplace=True)
+    torch.cuda.synchronize()
+    assert sT.data_ptr() == state.data_ptr()
+    assert torch.equal(out, want[0]) and torch.equal(state, want[1])
+
+
+@pytest.mark.cuda
+def test_wkv6_rejects_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    r, k, v, w, u, s0 = _wkv_inputs(1, 2, 5, g, cuda)
+    with pytest.raises(ValueError):  # fp32 only
+        wkv6_cuda(r.bfloat16(), k.bfloat16(), v.bfloat16(), w.bfloat16(), u, s0)
+    with pytest.raises(ValueError):
+        wkv6_cuda(r, k, v, w, u, s0.double())
+    with pytest.raises(ValueError):  # head size 64 only
+        wkv6_cuda(r[..., :32], k[..., :32], v[..., :32], w[..., :32], u[:, :32],
+                  s0[..., :32, :32].contiguous())
+    with pytest.raises(ValueError):  # one layout for all four streams
+        wkv6_cuda(r, k, v.transpose(1, 2).contiguous().transpose(1, 2), w, u, s0)
+    with pytest.raises(ValueError):
+        wkv6_cuda(r, k, v, w, u, s0.transpose(2, 3))
+
+
+@pytest.mark.cuda
+def test_wkv6_launches_once_per_layer_decode_then_prefill(cuda):
+    cfg = get("rwkv6-1.6b-smoke")
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    caches = model.init_caches(2, 32, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 7), generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    wkv6_cuda.launches = 0
+    logits, _ = model.decode_step(params, toks[:, :1], caches)
+    assert wkv6_cuda.launches == cfg.n_layers
+    model.prefill(params, toks, caches)
+    assert wkv6_cuda.launches == 2 * cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul", ["xla", "pallas"])
+def test_rwkv_engine_on_the_card_batched_equals_solo(cuda, matmul):
+    cfg = get("rwkv6-1.6b-smoke")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    rng = np.random.default_rng(4)
+    reqs = [te.Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=m, request_id=i)
+            for i, (n, m) in enumerate([(6, 5), (9, 7), (4, 4), (13, 6)])]
+    scfg = te.ServeConfig(max_len=32, scheduler=te.SchedulerConfig(batch=2),
+                          kernel=te.KernelConfig(matmul=matmul))
+    wkv6_cuda.launches = 0
+    outs = te.Engine(cfg, params, scfg).run(reqs)
+    assert wkv6_cuda.launches > 0
+    assert [o.status for o in outs] == [te.RequestStatus.FINISHED] * 4
+    solo = te.Engine(cfg, params, scfg).run([reqs[1]])[0]
+    assert np.array_equal(solo, outs[1])
