@@ -56,7 +56,29 @@ result.  Phases, any failure of which exits non-zero:
    step; (d) on layer 0's activations of one prefill and one decode step,
    ``ops.wkv6`` against the plain version; (e) one profiled decode step's
    card busy share and the kernel's share of it;
-7. check one full-width smollm-360m decode step through the kernels against
+7. recurrentgemma-2b at full width (26 layers: 8 groups of two RG-LRU
+   layers and one attention layer with a 2048-token window, then 2 RG-LRU
+   layers; d_model and rnn_width 2560, 10 query heads on 1 KV head of 256,
+   d_ff 7680, vocab 256000, bf16, random weights from a seeded generator,
+   with a seeded slow decay: ``lam`` drawn in [-9, -2] in place of init's
+   [0.9, 4], whose decay forgets everything each step): (a) the linear-scan
+   kernel against its plain version, bitwise, at the decode (8 x 1 x 2560)
+   and prefill (1 x 2048 x 2560) shapes, and the decode-attention kernels
+   (contiguous and paged) at head_dim 256 with 10 query heads per KV head
+   on a 2048-slot ring with six of eight rows wrapped, bitwise; (b) their
+   times with a cold L2 beside the bound (bytes over 3.35 TB/s), the plain
+   version and one library call (``torch.addcmul`` for one scan step, SDPA
+   for attention); (c) 16 requests (two of 1900-2000 prompt tokens and 160
+   new tokens, whose rings wrap; fourteen of 16-256 and 48-64) served with
+   8 slots at ``max_len`` 4096 with ``matmul="xla"`` and ``"pallas"``:
+   every request finished, the scan launched exactly 18 times per prefill
+   call and per decode step, decode attention 8 times per decode step;
+   (d) on the first RG-LRU layer's operands of one prefill and one decode
+   step, ``ops.linear_scan`` against the plain version, bitwise; (e) one
+   profiled decode step's card busy share and the two kernels' shares of
+   it; (f) one full-width decode step through the kernels against the plain
+   path, within 5% of the logit scale;
+8. check one full-width smollm-360m decode step through the kernels against
    the plain path on the card, then print the ``kernels`` summary and, last,
    the ``{"ok": true, ...}`` line.
 """
@@ -116,6 +138,7 @@ from repro_torch.kernels import abft  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d as conv  # noqa: E402
 from repro_torch.kernels.conv2d import ops as convops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_attention as dec  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as dec_ops  # noqa: E402
 from repro_torch.kernels.linear_scan import linear_scan as ls  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as lsops  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
@@ -134,6 +157,7 @@ WRAPPERS = {
     "gemm_bf16_abft": mm.matmul_abft_cuda,
     "conv2d": conv.conv2d_cuda,
     "wkv6": ls.wkv6_cuda,
+    "linear_scan": ls.linear_scan_cuda,
 }
 KERNEL_INFO = {
     "flash_decode": dict(
@@ -154,6 +178,9 @@ KERNEL_INFO = {
     "wkv6": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/wkv6.cu",
         replaces="src/repro/kernels/linear_scan/linear_scan.py:112"),
+    "linear_scan": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/linear_scan.cu",
+        replaces="src/repro/kernels/linear_scan/linear_scan.py:55"),
 }
 # the five projection GEMMs of smollm-360m: (K, N, B transposed)
 GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
@@ -213,33 +240,36 @@ def bound_ms(nbytes: float, flops: float, peak: float = hw.BF16_FLOPS_PER_S) -> 
 # ----------------------------------------------------------- kernel phase --
 
 
-def check_decode(results: dict) -> None:
-    """Both decode-attention kernels at the serve shapes against their
-    plain versions; paged must equal contiguous bitwise at bk == bs."""
-    B, KV, G, d, S = SLOTS, 5, 3, 64, MAX_LEN
+def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int,
+                 lengths: list[int], suffix: str = "") -> None:
+    """Both decode-attention kernels against their plain versions, bitwise,
+    at one serve path's shape (cache extent S, split bk; the paged pool's
+    block is bk); paged must equal contiguous bitwise at bk == bs.  The
+    readings go to ``results[name + suffix]``."""
     g = torch.Generator(device=DEV).manual_seed(1)
     q = torch.randn((B, KV, G, d), generator=g, device=DEV).bfloat16()
     k = torch.randn((B, S, KV, d), generator=g, device=DEV).bfloat16()
     v = torch.randn((B, S, KV, d), generator=g, device=DEV).bfloat16()
-    lengths = torch.tensor([0, 1, 17, 100, 255, 300, 777, 1024], dtype=torch.int32, device=DEV)
-    n_blk = S // BS
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    n_blk = S // bk
     perm = torch.randperm(B * n_blk, generator=g, device=DEV) + 1
     tables = perm.reshape(B, n_blk).to(torch.int32)
-    kpool = torch.randn((B * n_blk + 1, BS, KV, d), generator=g, device=DEV).bfloat16()
+    kpool = torch.randn((B * n_blk + 1, bk, KV, d), generator=g, device=DEV).bfloat16()
     vpool = torch.randn_like(kpool)
-    kpool[tables.long()] = k.reshape(B, n_blk, BS, KV, d)
-    vpool[tables.long()] = v.reshape(B, n_blk, BS, KV, d)
+    kpool[tables.long()] = k.reshape(B, n_blk, bk, KV, d)
+    vpool[tables.long()] = v.reshape(B, n_blk, bk, KV, d)
 
-    contig = dec.flash_decode_cuda(q, k, v, lengths, bk=BS)
+    contig = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
     paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
     torch.cuda.synchronize()
+    shape = f"B={B} KV={KV} G={G} d={d} S={S} bk=bs={bk}"
     if not torch.equal(contig, paged):
-        fail("paged decode attention differs from contiguous at bk == block_size")
-    print("decode attention: paged == contiguous bitwise at bk == block_size = 16")
+        fail(f"decode attention {shape}: paged differs from contiguous at bk == block_size")
+    print(f"decode attention {shape}: paged == contiguous bitwise", flush=True)
 
     live = torch.clamp(lengths, 1, S).long()
     live_keys = int(live.sum())
-    n_live_blocks = int(((live + BS - 1) // BS).sum())
+    n_live_blocks = int(((live + bk - 1) // bk).sum())
     qo_bytes = 2 * q.numel() * 2 + lengths.numel() * 4
     kv_bytes = live_keys * KV * d * 2 * 2
     flops = live_keys * KV * G * d * 4
@@ -257,8 +287,8 @@ def check_decode(results: dict) -> None:
 
     cases = {
         "flash_decode": (
-            contig, lambda: dec.decode_attention_plain(q, k, v, lengths, bk=BS),
-            lambda: dec.flash_decode_cuda(q, k, v, lengths, bk=BS), 0,
+            contig, lambda: dec.decode_attention_plain(q, k, v, lengths, bk=bk),
+            lambda: dec.flash_decode_cuda(q, k, v, lengths, bk=bk), 0,
         ),
         "flash_decode_paged": (
             paged, lambda: dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths),
@@ -272,22 +302,19 @@ def check_decode(results: dict) -> None:
         # bitwise: kernel and plain version sum order-independently (fp64
         # accumulation, one rounding), which the ABFT fingerprint needs
         if not torch.equal(got, want):
-            fail(f"{name}: kernel differs from the plain version in "
+            fail(f"{name} {shape}: kernel differs from the plain version in "
                  f"{int((got != want).sum())} elements (max |diff| {float(err.max()):.3e}); "
                  f"they must be bitwise equal")
         b_ms, b_by = bound_ms(qo_bytes + kv_bytes + extra_bytes, flops)
-        results[name] = dict(
+        results[name + suffix] = row = dict(
             max_abs_err=float(err.max()), tolerance="bitwise",
             ms=time_ms(kern_fn), plain_ms=time_ms(plain_fn, iters=5),
             library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
-            bound_ms=b_ms, bound_by=b_by,
-            shape=f"B={B} KV={KV} G={G} d={d} S={S} bs={BS} live_keys={live_keys}",
+            bound_ms=b_ms, bound_by=b_by, shape=f"{shape} live_keys={live_keys}",
         )
-        print(f"{name}: max_abs_err={results[name]['max_abs_err']:.3e} "
-              f"(bitwise) ms={results[name]['ms']:.4f} "
-              f"plain_ms={results[name]['plain_ms']:.4f} "
-              f"library_ms={results[name]['library_ms']:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        print(f"{name} {shape}: max_abs_err={row['max_abs_err']:.3e} "
+              f"(bitwise) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
 
 
 def check_gemm(results: dict, prefill_m: int) -> None:
@@ -440,11 +467,12 @@ def workload(cfg, seed: int = 0) -> list:
             for i, (p, b) in enumerate(zip(prompts, budgets))]
 
 
-def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str = "off"):
+def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str = "off",
+               max_len: int = MAX_LEN, decode_block: int | None = BS):
     kv = (KVConfig(layout="paged", block_size=BS) if layout == "paged"
-          else KVConfig(decode_block=BS))
+          else KVConfig(decode_block=decode_block))
     scfg = ServeConfig(
-        max_len=MAX_LEN,
+        max_len=max_len,
         scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16),
         kv=kv, kernel=KernelConfig(matmul=matmul, attention="flash", abft=abft_mode),
     )
@@ -524,8 +552,45 @@ class HostTimer:
             setattr(obj, name, fn)
 
 
+def counted_serve_runs(cfg, params, reqs, per_call: dict, totals: dict, tag: str,
+                       **serve_kw) -> tuple[list, Engine]:
+    """Serve ``reqs`` on the contiguous layout with ``matmul="xla"`` and
+    ``"pallas"``, counting ``Model.prefill`` calls and decode steps.  Each
+    kernel named in ``per_call`` must launch exactly (launches per prefill
+    call, per decode step) times those counts; no other kernel may launch
+    but the GEMM, and it only under ``"pallas"``.  Returns the runs and the
+    last engine."""
+    runs = []
+    for matmul in ("xla", "pallas"):
+        calls = HostTimer({"prefill": (Model, "prefill"), "decode": (Model, "decode_step")})
+        try:
+            res, _, eng = serve_once(cfg, params, "contiguous", matmul, reqs, **serve_kw)
+        finally:
+            calls.restore()
+        n_pre, n_dec = calls.calls["prefill"], calls.calls["decode"]
+        got = res["launches"]
+        want = {n: a * n_pre + b * n_dec for n, (a, b) in per_call.items()}
+        for name, n in want.items():
+            if got[name] != n or n <= 0:
+                fail(f"{tag}/{matmul}: {name} launched {got[name]} times, want {n} "
+                     f"({n_pre} prefill calls, {n_dec} decode steps)")
+        others = {n: c for n, c in got.items() if c and n not in want and n != "gemm_bf16"}
+        if others or (got["gemm_bf16"] > 0) != (matmul == "pallas"):
+            fail(f"{tag}/{matmul}: unexpected kernel launches {got}")
+        if eng.stats["admitted"] != len(reqs):
+            fail(f"{tag}/{matmul}: admitted {eng.stats['admitted']} of {len(reqs)}")
+        print(f"{tag}/{matmul}: " + ", ".join(f"{n} launched {got[n]}" for n in want)
+              + f" for {n_pre} prefill calls and {n_dec} decode steps", flush=True)
+        res.update(prefill_calls=n_pre, decode_steps=n_dec)
+        runs.append(res)
+        for n, c in got.items():
+            totals[n] += c
+    return runs, eng
+
+
 def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous",
-                   abft_mode: str = "off", focus: str | None = None) -> dict:
+                   abft_mode: str = "off", focus: tuple[str, ...] = (),
+                   max_len: int = MAX_LEN, decode_block: int | None = BS) -> dict:
     """Where a decode step's time goes on the kernel path
     (``matmul="pallas"``): host wall time per step without the profiler,
     then the card's busy time per step from ``torch.profiler`` (the union
@@ -533,14 +598,15 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
     With ABFT on, also the host time per step inside the attention
     fingerprint, the checked GEMMs (``AbftTrace.mm`` in all), the verdict
     op ``ops.matmul_abft`` and the checksum kernel's wrapper.  With
-    ``focus``, also the card time per step of the kernels whose name holds
-    it, and their share of the busy time."""
+    ``focus``, also, for each name in it, the card time per step of the
+    kernels whose name holds it, and their share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kv = KVConfig(layout="paged", block_size=BS) if layout == "paged" else KVConfig(decode_block=BS)
+    kv = (KVConfig(layout="paged", block_size=BS) if layout == "paged"
+          else KVConfig(decode_block=decode_block))
     scfg = ServeConfig(
-        max_len=MAX_LEN, scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16),
+        max_len=max_len, scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16),
         kv=kv, kernel=KernelConfig(matmul="pallas", abft=abft_mode),
     )
     eng = Engine(cfg, params, scfg, device=DEV)
@@ -582,17 +648,15 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    focus_ms = None
-    if focus is not None:
-        focus_ms = sum(t for n, t in by_name.items() if focus in n) / steps / 1e3
+    busy_ms = busy / steps / 1e3
+    focus_ms = {f: sum(t for n, t in by_name.items() if f in n) / steps / 1e3 for f in focus}
     res = dict(
         layout=layout, abft=abft_mode,
-        step_ms=step_ms, device_busy_ms_per_step=busy / steps / 1e3,
-        busy_share=busy / steps / 1e3 / step_ms if spans else None,
+        step_ms=step_ms, device_busy_ms_per_step=busy_ms,
+        busy_share=busy_ms / step_ms if spans else None,
         top_kernels_ms_per_step={n[:80]: t / steps / 1e3 for n, t in top},
-        host_ms_per_step=host_parts, focus=focus, focus_ms_per_step=focus_ms,
-        focus_share_of_busy=focus_ms / (busy / steps / 1e3) if focus_ms is not None and spans
-        else None,
+        host_ms_per_step=host_parts, focus_ms_per_step=focus_ms,
+        focus_share_of_busy={f: t / busy_ms if spans else None for f, t in focus_ms.items()},
     )
     print(f"decode step ({cfg.name}, {layout}, pallas, abft={abft_mode}, {SLOTS} live rows): "
           f"{step_ms:.2f} ms wall, card busy {res['device_busy_ms_per_step']:.3f} ms per step "
@@ -601,9 +665,9 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
         print(f"  {t:.3f} ms/step  {n}")
     for n, t in (host_parts or {}).items():
         print(f"  host {t:.2f} ms/step inside {n}")
-    if focus is not None:
-        print(f"  {focus}: {focus_ms:.3f} ms/step of card time, share of busy "
-              f"{res['focus_share_of_busy']}", flush=True)
+    for f, t in focus_ms.items():
+        print(f"  {f}: {t:.3f} ms/step of card time, share of busy "
+              f"{res['focus_share_of_busy'][f]}", flush=True)
     return res
 
 
@@ -980,37 +1044,168 @@ def rwkv_phase(totals: dict, results: dict) -> dict:
           f"{cfg.dtype}, {n_params / 1e9:.3f} B parameters", flush=True)
     reqs = rwkv_workload(cfg)
     serve_once(cfg, params, "contiguous", "xla", reqs[:2])  # warm-up, not kept
-    runs = []
-    for matmul in ("xla", "pallas"):
-        calls = HostTimer({"prefill": (Model, "prefill"), "decode": (Model, "decode_step")})
-        try:
-            res, _, eng = serve_once(cfg, params, "contiguous", matmul, reqs)
-        finally:
-            calls.restore()
-        want = cfg.n_layers * (calls.calls["prefill"] + calls.calls["decode"])
-        got = res["launches"]["wkv6"]
-        if got != want or got <= 0:
-            fail(f"rwkv/{matmul}: wkv6 launched {got} times, want {cfg.n_layers} x "
-                 f"({calls.calls['prefill']} prefill calls + {calls.calls['decode']} "
-                 f"decode steps) = {want}")
-        others = {n: c for n, c in res["launches"].items()
-                  if c and n not in ("wkv6", "gemm_bf16")}
-        if others or (res["launches"]["gemm_bf16"] > 0) != (matmul == "pallas"):
-            fail(f"rwkv/{matmul}: unexpected kernel launches {res['launches']}")
-        if eng.stats["admitted"] != len(reqs):
-            fail(f"rwkv/{matmul}: admitted {eng.stats['admitted']} of {len(reqs)}")
-        print(f"rwkv/{matmul}: wkv6 launched {got} = {cfg.n_layers} x "
-              f"({calls.calls['prefill']} prefill calls + {calls.calls['decode']} decode "
-              f"steps)", flush=True)
-        res.update(prefill_calls=calls.calls["prefill"], decode_steps=calls.calls["decode"])
-        runs.append(res)
-        for n, c in res["launches"].items():
-            totals[n] += c
+    runs, _ = counted_serve_runs(cfg, params, reqs, {"wkv6": (cfg.n_layers, cfg.n_layers)},
+                                 totals, "rwkv")
     print("-- (d) layer 0's real operands", flush=True)
     layer = check_rwkv_layer(cfg, params)
     print("-- (e) where a decode step's time goes", flush=True)
-    prof = profile_decode(cfg, params, reqs, focus="wkv6")
+    prof = profile_decode(cfg, params, reqs, focus=("wkv6",))
     return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof)
+
+
+# ----------------------------------------------------- recurrentgemma phase --
+
+RG_MAX_LEN = 4096
+SCAN_SHAPES = {"decode": (SLOTS, 1), "prefill": (1, 2048)}  # (B, T) at D = rnn_width
+
+
+def check_linear_scan(results: dict, D: int) -> None:
+    """(a) and (b) of phase 7 for the scan: the kernel against its plain
+    version, bitwise, at the serve path's decode and prefill shapes, and
+    its times."""
+    g = torch.Generator(device=DEV).manual_seed(10)
+    rows = {}
+    for case, (B, T) in SCAN_SHAPES.items():
+        a = torch.rand((B, T, D), generator=g, device=DEV) * 0.998 + 1e-3  # in (0, 1)
+        x = torch.randn((B, T, D), generator=g, device=DEV)
+        h0 = torch.randn((B, D), generator=g, device=DEV)
+        got = ls.linear_scan_cuda(a, x, h0)
+        want = ls.linear_scan_plain(a, x, h0)
+        torch.cuda.synchronize()
+        err = max(float((p - q).abs().max()) for p, q in zip(got, want))
+        if not all(torch.equal(p, q) for p, q in zip(got, want)):
+            fail(f"linear_scan {case} B={B} T={T} D={D}: kernel differs from the plain "
+                 f"version (max |diff| {err:.3e}); they must be bitwise equal")
+        # a and x read once, out written once (12 B per element); h0 read
+        # and h_T written once; one multiply and one add per element
+        nbytes = 12 * B * T * D + 8 * B * D
+        b_ms, b_by = bound_ms(nbytes, 2.0 * B * T * D, hw.FP32_FLOPS_PER_S)
+        rows[case] = row = dict(
+            B=B, T=T, D=D, max_abs_err=err, tolerance="bitwise",
+            ms=time_ms(lambda: ls.linear_scan_cuda(a, x, h0)),
+            plain_ms=time_ms(lambda: ls.linear_scan_plain(a, x, h0), iters=5),
+            # at T = 1 one call computes the step (out = h_T = x + a * h0)
+            library_ms=time_ms(lambda: torch.addcmul(x[:, 0], a[:, 0], h0)) if T == 1 else None,
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+        )
+        lib = (f"{row['library_ms']:.4f} (torch.addcmul)" if T == 1 else
+               "none (no single PyTorch call computes the recurrence)")
+        print(f"linear_scan {case} B={B} T={T} D={D}: bitwise ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}, "
+              f"{nbytes / 1e6:.2f} MB) library_ms: {lib}", flush=True)
+    # the summary line carries the decode shape, the call the serve loop
+    # makes most (18 per step); both shapes are in build/chip_smoke.json
+    results["linear_scan"] = dict(rows["decode"], shape=f"decode: B={SLOTS} T=1 D={D}",
+                                  cases=rows)
+
+
+def rg_params(cfg) -> dict:
+    """Full-width random weights from a seeded generator, with a seeded
+    slow RG-LRU decay: init's ``lam`` in [0.9, 4] gives a < 0.01 (the state
+    forgets every step), so ``lam`` is drawn in [-9, -2] (a between about
+    0.6 and 1), as the CPU tests do in both packages."""
+    params = build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    g = torch.Generator(device=DEV).manual_seed(1)
+    for tree in (params["groups"]["rnn"], params["tail"]):
+        if tree:
+            tree["rnn"]["lam"].uniform_(-9.0, -2.0, generator=g)
+    return params
+
+
+def rg_workload(cfg, seed: int = 0) -> list:
+    """16 requests from a seeded generator: first two with prompts of
+    1900-2000 tokens and 160 new tokens (their 2048-slot rings wrap during
+    decode), then 14 with prompts of 16-256 tokens and 48-64 new tokens."""
+    rng = torch.Generator().manual_seed(seed)
+    lens = (torch.randint(1900, 2001, (2,), generator=rng).tolist()
+            + torch.randint(16, 257, (14,), generator=rng).tolist())
+    budgets = [160, 160] + torch.randint(48, 65, (14,), generator=rng).tolist()
+    return [Request(torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype(np.int32),
+                    max_new=b, request_id=i)
+            for i, (n, b) in enumerate(zip(lens, budgets))]
+
+
+def check_rg_layer(cfg, params) -> dict:
+    """(d) of phase 7: ``ops.linear_scan`` against the plain version,
+    bitwise, on the operands the first rnn layer hands the scan in a
+    1000-token prefill and in the decode step after it (captured from the
+    model's own call, before the kernel updates the state in place)."""
+    model = build(cfg)
+    g = torch.Generator(device=DEV).manual_seed(12)
+    toks = torch.randint(0, cfg.vocab, (1, 1000), generator=g, device=DEV)
+    step = torch.randint(0, cfg.vocab, (1, 1), generator=g, device=DEV)
+    caches = kvcache.build_caches(cfg, 1, RG_MAX_LEN, DEV)
+    real = lsops.linear_scan
+    out = {}
+    for case, run in (("prefill", lambda: model.prefill(params, toks, caches)),
+                      ("decode", lambda: model.decode_step(params, step, caches))):
+        seen = []
+
+        def capture(a, x, h0, **kw):
+            if not seen:
+                seen.append((a.clone(), x.clone(), h0.clone()))
+            return real(a, x, h0, **kw)
+
+        lsops.linear_scan = capture
+        try:
+            run()
+        finally:
+            lsops.linear_scan = real
+        a, x, h0 = seen[0]
+        got = lsops.linear_scan(a, x, h0)
+        want = ls.linear_scan_plain(a, x, h0)
+        torch.cuda.synchronize()
+        ok = all(torch.equal(p, q) and bool(torch.isfinite(p).all()) for p, q in zip(got, want))
+        if not ok:
+            fail(f"recurrentgemma layer 0 {case}: ops.linear_scan differs from the plain "
+                 f"version on the model's operands")
+        out[case] = dict(T=a.shape[1], a_min=float(a.min()), a_max=float(a.max()),
+                         h_scale=float(got[1].abs().max()))
+        print(f"recurrentgemma layer 0 {case} (T={a.shape[1]}): ops.linear_scan == plain "
+              f"bitwise; a in [{out[case]['a_min']:.4f}, {out[case]['a_max']:.4f}], "
+              f"|h_T| <= {out[case]['h_scale']:.3e}", flush=True)
+    return out
+
+
+def rg_phase(totals: dict, results: dict) -> dict:
+    """Phase 7 of the module docstring."""
+    cfg = get("recurrentgemma-2b")
+    n_rnn = cfg.n_layers - cfg.n_layers // (cfg.rnn_per_attention + 1)
+    n_attn = cfg.n_layers - n_rnn
+    print("-- (a, b) the kernels against their plain versions, and their times", flush=True)
+    check_linear_scan(results, cfg.rnn_width)
+    # six of eight rows wrapped (every slot of the 2048-slot ring live)
+    S = cfg.sliding_window
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, S, dec_ops._pick_decode_bk(S),
+                 [37, 1500] + [S] * (SLOTS - 2), suffix="_d256")
+    params = rg_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"-- (c) serve {cfg.name}: {cfg.n_layers} layers ({n_rnn} RG-LRU, {n_attn} "
+          f"attention with window {cfg.sliding_window}), d_model {cfg.d_model}, rnn_width "
+          f"{cfg.rnn_width}, {cfg.n_heads} heads on {cfg.n_kv_heads} KV head of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"{n_params / 1e9:.3f} B parameters; max_len {RG_MAX_LEN}", flush=True)
+    reqs = rg_workload(cfg)
+    common = dict(max_len=RG_MAX_LEN, decode_block=None)
+    serve_once(cfg, params, "contiguous", "xla", reqs[2:4], **common)  # warm-up, not kept
+    runs, eng = counted_serve_runs(
+        cfg, params, reqs, {"linear_scan": (n_rnn, n_rnn), "flash_decode": (0, n_attn)},
+        totals, "recurrentgemma", **common)
+    ring = eng.caches["groups"]["attn"]["k"].shape[2]
+    print(f"recurrentgemma: the two long requests reached "
+          f"{[len(r.prompt) + r.max_new - 1 for r in reqs[:2]]} positions on {ring}-slot "
+          f"rings", flush=True)
+    if not all(len(r.prompt) + r.max_new - 1 > ring for r in reqs[:2]):
+        fail("recurrentgemma: the long requests do not wrap their rings")
+    print("-- (d) layer 0's real operands", flush=True)
+    layer = check_rg_layer(cfg, params)
+    print("-- (e) where a decode step's time goes", flush=True)
+    prof = profile_decode(cfg, params, reqs, focus=("linear_scan", "decode_kernel"), **common)
+    print("-- (f) one full-width decode step, kernels against the plain path", flush=True)
+    step_err = check_decode_step(cfg, params)
+    return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof,
+                decode_step_max_abs_err=step_err)
 
 
 def _leaves(tree):
@@ -1023,24 +1218,26 @@ def _leaves(tree):
 
 def check_decode_step(cfg, params) -> float:
     """One full-width decode step through the kernels against the plain
-    path (torch.matmul + the masked dense attention) on the same caches."""
+    path (torch.matmul + the masked dense attention) on the same caches.
+    The linear scan has no plain route on the card: both paths run its
+    kernel, which (d) of phase 7 holds bitwise to its plain version."""
     model = build(cfg)
     g = torch.Generator(device=DEV).manual_seed(3)
     toks = torch.randint(0, cfg.vocab, (2, 48), generator=g, device=DEV)
     caches = kvcache.build_caches(cfg, 2, 64, DEV)
     model.prefill(params, toks, caches)
     step = torch.randint(0, cfg.vocab, (2, 1), generator=g, device=DEV)
-    want, _ = model.decode_step(params, step, {k: v.clone() for k, v in caches.items()})
+    want, _ = model.decode_step(params, step, kvcache._tree_map(torch.clone, caches))
     got, _ = model.decode_step(params, step, caches,
                                dispatch=L.Dispatch(matmul="pallas", attention="flash"))
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
-    # 32 bf16 layers on both sides, rounded in other places: a few percent
+    # all bf16 layers on both sides, rounded in other places: a few percent
     # of the logit scale
     if not torch.isfinite(got).all() or err > 0.05 * scale:
-        fail(f"full-width decode step: kernel path vs plain path max err {err:.3e} "
-             f"> 5% of the logit scale {scale:.3e}")
-    print(f"decode step (kernels vs plain, full width): max |diff| {err:.3e}, "
+        fail(f"full-width {cfg.name} decode step: kernel path vs plain path max err "
+             f"{err:.3e} > 5% of the logit scale {scale:.3e}")
+    print(f"decode step ({cfg.name}, kernels vs plain, full width): max |diff| {err:.3e}, "
           f"logit scale {scale:.3e}", flush=True)
     return err
 
@@ -1062,7 +1259,8 @@ def main() -> None:
 
     print("== kernels against their plain versions", flush=True)
     results: dict = {}
-    check_decode(results)
+    check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
+                 [0, 1, 17, 100, 255, 300, 777, 1024])
     cfg = get("smollm-360m")
     # the first admission prefills the 8 prefix-sharing prompts, padded to
     # the 16-token bucket above PREFIX + 15, as one batch
@@ -1105,6 +1303,10 @@ def main() -> None:
     print("== rwkv6-1.6b (full width, random weights) through the WKV-6 kernel", flush=True)
     rwkv = rwkv_phase(totals, results)
 
+    print("== recurrentgemma-2b (full width, random weights) through the linear-scan and "
+          "decode-attention kernels", flush=True)
+    rgemma = rg_phase(totals, results)
+
     print("== reference check", flush=True)
     check_decode_step(cfg, params)
 
@@ -1114,6 +1316,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
              serve=runs, decode_profile=prof, sdc=sdc, conv=convs, rwkv=rwkv,
+             recurrentgemma=rgemma,
              seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [

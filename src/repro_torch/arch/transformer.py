@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense and RWKV-6 paths; port of
-``repro/arch/transformer.py``.
+"""Decoder-only LM: the dense, RWKV-6 and hybrid (recurrentgemma) paths;
+port of ``repro/arch/transformer.py``.
 
 One :class:`Model` per config exposing
 
@@ -9,9 +9,12 @@ One :class:`Model` per config exposing
     init_caches(batch, max_len, device)            -> caches
 
 Parameters keep the reference's layer-stacked layout (every leaf under
-``params["layers"]`` has a leading ``n_layers`` axis); the reference's
-``lax.scan`` over that axis becomes a Python loop that indexes one layer's
-weights and cache views at a time.  Caches are updated in place.
+``params["layers"]`` has a leading ``n_layers`` axis; the hybrid family's
+``params["groups"]`` leaves lead with ``(n_groups, rnn_per_attention)``
+under ``rnn`` and ``(n_groups,)`` under ``attn``, ``params["tail"]``'s with
+the remainder's rnn layers); the reference's ``lax.scan`` over those axes
+becomes a Python loop that indexes one layer's weights and cache views at
+a time.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.arch import layers as L
+from repro_torch.arch import rglru as G
 from repro_torch.arch import rwkv as R
 from repro_torch.configs.base import ModelConfig
 
@@ -45,18 +49,15 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
     """Why the port cannot run ``cfg`` yet (the ROADMAP item that adds
-    it), or None for the dense and RWKV-6 paths it does run."""
+    it), or None for the dense, RWKV-6 and hybrid paths it does run."""
     if cfg.family == "encdec":
-        return "encoder-decoder models are ROADMAP A10 (arch/encdec.py)"
+        return "encoder-decoder models are ROADMAP A10c (arch/encdec.py)"
     if cfg.family == "vlm":
-        return "the VLM patch projection is ROADMAP A10"
+        return "the VLM patch projection is ROADMAP A10c"
     if cfg.moe is not None or cfg.family == "moe":
-        return "MoE FFNs are ROADMAP A10 (arch/moe.py)"
-    if cfg.family == "hybrid" or cfg.mixer == "rglru":
-        return ("recurrentgemma's hybrid backbone is ROADMAP A10b (arch/rglru.py, "
-                "ring caches)")
+        return "MoE FFNs are ROADMAP A10c (arch/moe.py)"
     if cfg.global_every:
-        return "the local:global backbone (gemma3) is ROADMAP A3"
+        return "the local:global backbone (gemma3) is ROADMAP A3b"
     return None
 
 
@@ -90,6 +91,15 @@ def rwkv_block_apply(
     return x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
 
 
+def rnn_block_apply(
+    p: dict, cfg: ModelConfig, x: torch.Tensor, *, cache: dict | None,
+    dispatch: L.Dispatch = L.PLAIN,
+) -> torch.Tensor:
+    h, _ = G.rglru_block(p["rnn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps), cache)
+    x = x + h
+    return x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
+
+
 def _index(tree, i: int):
     """Layer ``i`` of a layer-stacked dict tree (views, not copies)."""
     if isinstance(tree, dict):
@@ -111,25 +121,38 @@ class Model:
         """Random parameters from the reference's distributions (normal
         0.02 embeddings, normal 0.02/sqrt(d) projections, unit norm
         scales; for RWKV-6 also ``mu`` 0.5, ``w0`` -3, a zero ``w_lora_b``
-        and ``u`` normal 0.5 in fp32), drawn from ``generator``, which must
-        live on ``device``.
+        and ``u`` normal 0.5 in fp32; for the RG-LRU an fp32 ``lam`` and a
+        normal 0.02 conv kernel), drawn from ``generator``, which must live
+        on ``device``.
         The draws differ from ``jax.random``'s; tests that compare the two
         packages convert one tree with ``repro_torch.bridge``."""
         cfg = self.cfg
-        lead = (cfg.n_layers,)
-        if cfg.mixer == "rwkv6":
-            mixer = ("wkv", R.rwkv_init(generator, cfg, device, lead))
+
+        def blocks(kind: str, lead: tuple) -> dict:
+            mixer = {"wkv": R.rwkv_init, "rnn": G.rglru_init,
+                     "attn": L.attention_init}[kind]
+            return {
+                "ln1": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
+                kind: mixer(generator, cfg, device, lead),
+                "ln2": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
+                "mlp": L.mlp_init(generator, cfg, device, lead),
+            }
+
+        if cfg.family == "hybrid":
+            ng, rem = divmod(cfg.n_layers, cfg.rnn_per_attention + 1)
+            body = {
+                "groups": {
+                    "rnn": blocks("rnn", (ng, cfg.rnn_per_attention)),
+                    "attn": blocks("attn", (ng,)),
+                },
+                "tail": blocks("rnn", (rem,)) if rem else {},
+            }
         else:
-            mixer = ("attn", L.attention_init(generator, cfg, device, lead))
-        layers = {
-            "ln1": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
-            mixer[0]: mixer[1],
-            "ln2": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
-            "mlp": L.mlp_init(generator, cfg, device, lead),
-        }
+            body = {"layers": blocks("wkv" if cfg.mixer == "rwkv6" else "attn",
+                                     (cfg.n_layers,))}
         return {
             "embed": L.embedding_init(generator, cfg, device),
-            "layers": layers,
+            **body,
             "final_ln": L.rmsnorm_init(cfg.d_model, device),
         }
 
@@ -143,6 +166,8 @@ class Model:
         dispatch: L.Dispatch,
     ) -> torch.Tensor:
         cfg = self.cfg
+        if cfg.family == "hybrid":
+            return self._backbone_hybrid(params, x, positions, caches, dispatch)
         if cfg.mixer == "rwkv6":
             for i in range(cfg.n_layers):
                 x = rwkv_block_apply(
@@ -183,6 +208,31 @@ class Model:
         if trace is not None:
             trace.layer = None
             trace.flags.append(torch.stack(layer_flags).any())
+        return x
+
+    def _backbone_hybrid(self, params, x, positions, caches, dispatch):
+        """Groups of (rnn x rnn_per_attention, attention), then the tail's
+        rnn layers; every attention layer has the sliding window."""
+        cfg = self.cfg
+        ng, rem = divmod(cfg.n_layers, cfg.rnn_per_attention + 1)
+        for gi in range(ng):
+            p = _index(params["groups"], gi)
+            c = None if caches is None else _index(caches["groups"], gi)
+            for r in range(cfg.rnn_per_attention):
+                x = rnn_block_apply(
+                    _index(p["rnn"], r), cfg, x,
+                    cache=None if c is None else _index(c["rnn"], r), dispatch=dispatch,
+                )
+            x = attn_block_apply(
+                p["attn"], cfg, x, window=cfg.sliding_window, positions=positions,
+                cache=None if c is None else c["attn"], dispatch=dispatch,
+            )
+        for i in range(rem):
+            x = rnn_block_apply(
+                _index(params["tail"], i), cfg, x,
+                cache=None if caches is None else _index(caches["tail"], i),
+                dispatch=dispatch,
+            )
         return x
 
     def logits_fn(

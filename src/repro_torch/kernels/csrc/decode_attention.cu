@@ -10,8 +10,9 @@
 // paged output is bitwise equal to contiguous output at bk == block_size.
 //
 // What bounds it: bytes.  A decode step reads each live K/V row once and
-// does 4*G*D flops per key (G = 3 on the served model), far below the
-// card's ~295 flops/byte ridge, so the limit is HBM bandwidth.  The design:
+// does 4*G*D flops per key (G = 3 on smollm-360m, 10 on recurrentgemma-2b),
+// far below the card's ~295 flops/byte ridge, so the limit is HBM
+// bandwidth.  The design:
 //   * one thread block per (b, kv_head) walks the live splits
 //     j < ceil(len/bk) in order, so each block reads only its row's live
 //     keys (ragged lengths cost what they hold, never max_len) and each K/V
@@ -21,8 +22,13 @@
 //   * the online softmax keeps running max / normaliser / fp32 accumulator
 //     in shared memory; row reductions use a fixed warp-shuffle butterfly,
 //     no atomics, so results are deterministic run to run.
-// It under-fills the card at small batch (B*KV blocks, 40 on 132 SMs at
-// B=8); splitting KV across blocks with a fixed-order combine is later work.
+// It under-fills the card at small batch (B*KV blocks: 40 on 132 SMs at
+// B=8 for smollm-360m, 8 for recurrentgemma-2b's single KV head); splitting
+// KV across blocks with a fixed-order combine is later work.
+// Head sizes 64, 128 and 256, groups of up to kMaxG = 16 query heads.  The
+// query and accumulator rows (2*G*D fp32, 32 KB at G = 16, D = 256) are
+// static shared memory; the K/V tile is dynamic and above 48 KB (D = 256
+// with bk = 64 takes 66 KB) the launch opts in to the larger carve-out.
 //
 // Semantics copied exactly from the reference: lengths clamped to
 // [1, max_len] (a length of 0 attends one key); masked scores are -1e30,
@@ -52,7 +58,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;
+constexpr int kMaxG = 16;
 
 struct ContigRows {
   int S, bk;
@@ -210,6 +216,9 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                         window, scale, stream);
     case 128:
       return launch<128>(q, k, v, lengths, out, rows, B, KV, G, bk, max_len,
+                         window, scale, stream);
+    case 256:
+      return launch<256>(q, k, v, lengths, out, rows, B, KV, G, bk, max_len,
                          window, scale, stream);
     default:
       return cudaErrorInvalidValue;

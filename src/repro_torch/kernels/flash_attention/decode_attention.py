@@ -49,8 +49,8 @@ _SIGS = {
     "flash_decode": [_P] * 5 + [_I] * 6 + [_F, _P],
     "flash_decode_paged": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
-HEAD_DIMS = (64, 128)
-MAX_G = 8
+HEAD_DIMS = (64, 128, 256)
+MAX_G = 16
 MAX_BK = 256
 
 

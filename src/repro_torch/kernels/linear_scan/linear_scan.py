@@ -1,20 +1,32 @@
-"""RWKV-6 WKV recurrence: the CUDA kernel wrapper and its plain version.
+"""The linear-scan kernels: CUDA wrappers and their plain versions.
 
-:func:`wkv6_cuda` replaces the TPU kernel ``wkv6_pallas``
-(``repro/kernels/linear_scan/linear_scan.py``) with
-``kernels/csrc/wkv6.cu``: one block per (batch row, head), each thread
-holding one value column of the 64 x 64 fp32 state in registers across
-all T steps, the sum over the key index in a fixed order.  It takes fp32
-tensors with head size 64 and raises on anything else.  r, k, v and w may
-be any (B, H, T, 64) views that share one dense layout with a contiguous
-last axis (the model passes its (B, T, H, 64) activations transposed, with
-no copy); the output comes back in that layout.  With ``inplace`` the
-final state overwrites ``s0`` (the serve cache's state), which the kernel
-can do because each block owns its state alone.
+:func:`linear_scan_cuda` replaces the TPU kernel ``linear_scan_pallas``
+(``repro/kernels/linear_scan/linear_scan.py``, the RG-LRU's diagonal
+recurrence ``h_t = a_t * h_{t-1} + x_t``) with
+``kernels/csrc/linear_scan.cu``: one thread per (batch row, channel),
+``h`` in a register for all T, the loads of the next 16 steps issued ahead
+of the dependent chain.  It takes fp32 ``(B, T, D)`` tensors whose last
+axis is contiguous (any row and step strides) and raises on anything
+else.  Each step is one rounded multiply and one rounded add, as in its
+plain version :func:`linear_scan_plain` (the reference's step loop,
+``ref.linear_scan_ref``), so the two are bitwise equal on the card.  With
+``inplace`` the final state overwrites ``h0`` (the serve cache's ``h``).
 
+:func:`wkv6_cuda` replaces the TPU kernel ``wkv6_pallas`` (same file)
+with ``kernels/csrc/wkv6.cu``: one block per (batch row, head), each
+thread holding one value column of the 64 x 64 fp32 state in registers
+across all T steps, the sum over the key index in a fixed order.  It takes
+fp32 tensors with head size 64 and raises on anything else.  r, k, v and w
+may be any (B, H, T, 64) views that share one dense layout with a
+contiguous last axis (the model passes its (B, T, H, 64) activations
+transposed, with no copy); the output comes back in that layout.  With
+``inplace`` the final state overwrites ``s0`` (the serve cache's state),
+which the kernel can do because each block owns its state alone.
 :func:`wkv6_plain` is its plain version: the reference's per-step einsum
-(``ref.wkv6_ref``).  The wrapper runs it only for CPU tensors; a CUDA
-tensor launches the kernel or raises.
+(``ref.wkv6_ref``).
+
+Each wrapper runs its plain version only for CPU tensors; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -24,12 +36,80 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.linear_scan.ref import wkv6_ref
+from repro_torch.kernels.linear_scan.ref import linear_scan_ref, wkv6_ref
 
 HEAD_D = 64  # the kernel's head size (RWKV-6 heads are 64 wide)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGS = {"wkv6_fp32": [_P] * 8 + [_I] * 3 + [_L] * 3 + [_P]}
+_SCAN_SIGS = {"linear_scan_fp32": [_P] * 5 + [_I] * 3 + [_L] * 6 + [_P]}
+
+
+# ------------------------------------------------------------ diagonal scan
+
+
+def linear_scan_plain(
+    a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *, inplace: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    out, hT = linear_scan_ref(a, x, h0)
+    if inplace:
+        hT = h0.copy_(hT)
+    return out, hT
+
+
+def _check_scan(a, x, h0) -> tuple[int, int, int]:
+    """Raise on what the scan kernel does not take; returns (B, T, D)."""
+    dev = a.device
+    if dev.type != "cuda" or any(t.device != dev for t in (x, h0)):
+        raise ValueError("linear_scan needs every operand on one CUDA device: "
+                         f"{[str(t.device) for t in (a, x, h0)]}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"operands are on {dev}, not the current CUDA device")
+    if any(t.dtype != torch.float32 for t in (a, x, h0)):
+        raise ValueError(f"kernel takes fp32 operands, got {[t.dtype for t in (a, x, h0)]}")
+    if a.ndim != 3 or x.shape != a.shape:
+        raise ValueError(f"a and x must be one (B, T, D) shape: {tuple(a.shape)}, "
+                         f"{tuple(x.shape)}")
+    B, T, D = a.shape
+    if h0.shape != (B, D):
+        raise ValueError(f"h0 must be ({B}, {D}): {tuple(h0.shape)}")
+    if D > 1 and (a.stride(2) != 1 or x.stride(2) != 1 or h0.stride(1) != 1):
+        raise ValueError(f"the channel axis must be contiguous: strides {a.stride()}, "
+                         f"{x.stride()}, {h0.stride()}")
+    return B, T, D
+
+
+def linear_scan_cuda(
+    a: torch.Tensor,   # (B, T, D) fp32 decay
+    x: torch.Tensor,   # (B, T, D) fp32 input
+    h0: torch.Tensor,  # (B, D) fp32 state
+    *,
+    inplace: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (out (B, T, D) contiguous, h_T (B, D)); with ``inplace``, h_T is
+    ``h0`` updated in place."""
+    if all(t.device.type == "cpu" for t in (a, x, h0)):
+        return linear_scan_plain(a, x, h0, inplace=inplace)
+    B, T, D = _check_scan(a, x, h0)
+    out = torch.empty((B, T, D), dtype=torch.float32, device=a.device)
+    hT = h0 if inplace else torch.empty_like(h0)
+    if B * D == 0:
+        return out, hT
+    lib = _build.library("linear_scan", _SCAN_SIGS)
+    err = lib.linear_scan_fp32(
+        a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(), hT.data_ptr(),
+        B, T, D, a.stride(0), a.stride(1), x.stride(0), x.stride(1),
+        h0.stride(0), hT.stride(0), torch.cuda.current_stream().cuda_stream,
+    )
+    _build.check(err, "linear_scan_fp32")
+    linear_scan_cuda.launches += 1
+    return out, hT
+
+
+linear_scan_cuda.launches = 0
+
+
+# ------------------------------------------------------------------- WKV-6
 
 
 def wkv6_plain(

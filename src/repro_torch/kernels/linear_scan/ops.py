@@ -1,13 +1,24 @@
-"""WKV-6 entry point; port of the ``wkv6`` half of
-``repro/kernels/linear_scan/ops.py``.  The reference jit-wraps its Pallas
-call and interprets it off the TPU; here the entry point is the kernel
-wrapper, which takes the plain version only for CPU tensors."""
+"""Linear-scan entry points; port of ``repro/kernels/linear_scan/ops.py``.
+The reference jit-wraps its Pallas calls and interprets them off the TPU;
+here each entry point is its kernel's wrapper, which takes the plain
+version only for CPU tensors.  The reference's ``bd`` (the TPU's channel
+block) has no counterpart: the CUDA scan gives every channel its own
+thread."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.linear_scan.linear_scan import wkv6_cuda
+from repro_torch.kernels.linear_scan.linear_scan import linear_scan_cuda, wkv6_cuda
+
+
+def linear_scan(
+    a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor, *, inplace: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``h_t = a_t * h_{t-1} + x_t`` over axis 1 of (B, T, D) fp32 tensors
+    from ``h0`` (B, D): returns (out (B, T, D), h_T); ``inplace`` writes
+    h_T into ``h0``."""
+    return linear_scan_cuda(a, x, h0, inplace=inplace)
 
 
 def wkv6(

@@ -1,10 +1,22 @@
-"""Plain oracle for the WKV-6 kernel; port of
-``repro/kernels/linear_scan/ref.py`` (``wkv6_ref``).  The diagonal scan's
-oracle comes with the recurrentgemma slice."""
+"""Plain oracles for the linear-scan kernels; port of
+``repro/kernels/linear_scan/ref.py``."""
 
 from __future__ import annotations
 
 import torch
+
+
+def linear_scan_ref(
+    a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + x_t over axis 1; returns (outs, h_T)."""
+    h = h0
+    outs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + x[:, t]
+        outs.append(h)
+    out = torch.stack(outs, dim=1) if outs else torch.empty_like(a)
+    return out, h
 
 
 def wkv6_ref(

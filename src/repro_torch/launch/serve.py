@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
 
 Generates a mixed-length synthetic workload with random weights, streams
 tokens through the engine, and reports throughput plus per-token latency.

@@ -1,9 +1,12 @@
 """Slot-based batched KV cache for the continuous-batching engine; port of
-``repro/serve/kvcache.py`` (dense and RWKV-6 paths plus the paged layout).
+``repro/serve/kvcache.py`` (dense, RWKV-6 and hybrid paths plus the paged
+layout).
 
 Contiguous layout: one ``(slots, max_len)`` KV ring per layer, stacked
 over layers; for RWKV-6 one recurrent state ``(slots, H, 64, 64)`` fp32
-and one token-shift row ``(slots, D)`` per layer.  Paged layout:
+and one token-shift row ``(slots, D)`` per layer; for the hybrid family a
+nested tree of window-sized KV rings and RG-LRU states (``h`` and the conv
+history), which the slot helpers walk leaf by leaf.  Paged layout:
 per-layer block pools ``(num_blocks, block_size, KV, hd)``, per-row block
 tables and lengths, with ownership (refcounts, free list, radix prefix
 index) kept host-side in :class:`BlockPool`.
@@ -18,65 +21,96 @@ from __future__ import annotations
 import torch
 
 from repro_torch.arch import layers as L
+from repro_torch.arch import rglru as G
 from repro_torch.arch import rwkv as R
 from repro_torch.arch.transformer import GLOBAL_WINDOW, layer_windows
 from repro_torch.configs.base import ModelConfig
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dict trees of one structure; a None
+    subtree (a hybrid model without groups or tail) stays None."""
+    if trees[0] is None:
+        return None
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stack(one: dict, n: int) -> dict:
+    """``n`` copies of a one-layer cache stacked on a new leading axis."""
+    return {k: v[None].expand((n,) + v.shape).clone() for k, v in one.items()}
+
+
 def build_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """Decode caches for ``batch`` slots of ``max_len`` positions each,
-    stacked over layers: leaves ``(L, batch, size, ...)``, or for RWKV-6
-    ``state`` ``(L, batch, H, 64, 64)`` and ``x_prev`` ``(L, batch, D)``."""
+    stacked over layers: leaves ``(L, batch, size, ...)``; for RWKV-6
+    ``state`` ``(L, batch, H, 64, 64)`` and ``x_prev`` ``(L, batch, D)``; for
+    the hybrid family ``{"groups": {"rnn": ..., "attn": ...}, "tail": ...}``
+    with the RG-LRU's ``h`` ``(.., batch, W)`` fp32 and ``conv``
+    ``(.., batch, K-1, W)`` under ``(n_groups, rnn_per)`` and ``(rem,)``
+    axes, and window-sized KV rings under ``(n_groups,)``."""
+    if cfg.family == "hybrid":
+        ng, rem = divmod(cfg.n_layers, cfg.rnn_per_attention + 1)
+        groups = None
+        if ng:
+            ring = L.init_kv_cache(cfg, batch, max_len, cfg.sliding_window, device)
+            groups = {
+                "rnn": G.rglru_init_cache(cfg, batch, device, lead=(ng, cfg.rnn_per_attention)),
+                "attn": _stack(ring, ng),
+            }
+        tail = G.rglru_init_cache(cfg, batch, device, lead=(rem,)) if rem else None
+        return {"groups": groups, "tail": tail}
     if cfg.mixer == "rwkv6":
         return R.rwkv_init_cache(cfg, batch, device, lead=(cfg.n_layers,))
     if cfg.family not in ("dense", "vlm", "moe") or cfg.mixer != "attention":
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid caches are ROADMAP A10b"
-        )
+        raise NotImplementedError(f"{cfg.name}: {cfg.family} caches are ROADMAP A10c")
     if cfg.global_every:
         raise NotImplementedError(
-            f"{cfg.name}: local:global ring groups are ROADMAP A3"
+            f"{cfg.name}: local:global ring groups are ROADMAP A3b"
         )
     w = int(layer_windows(cfg)[0])  # uniform over layers on this path
     one = L.init_kv_cache(
         cfg, batch, max_len, None if w >= GLOBAL_WINDOW else w, device
     )
-    return {
-        k: v[None].expand((cfg.n_layers,) + v.shape).clone() for k, v in one.items()
-    }
+    return _stack(one, cfg.n_layers)
 
 
 def slot_axes(cfg: ModelConfig, max_len: int) -> dict:
     """Per-leaf index of the slot (batch) axis, found by building the cache
-    at two batch sizes on the meta device and diffing shapes."""
-    s1 = build_caches(cfg, 1, max_len, device="meta")
-    s2 = build_caches(cfg, 2, max_len, device="meta")
-    return {
-        k: next(i for i, (x, y) in enumerate(zip(s1[k].shape, s2[k].shape)) if x != y)
-        for k in s1
-    }
+    at two batch sizes on the meta device and diffing shapes (hybrid rnn
+    leaves are ``(ng, rnn_per, B, ...)``, attention leaves ``(L, B, ...)``)."""
+    return _tree_map(
+        lambda x, y: next(i for i, (m, n) in enumerate(zip(x.shape, y.shape)) if m != n),
+        build_caches(cfg, 1, max_len, device="meta"),
+        build_caches(cfg, 2, max_len, device="meta"),
+    )
 
 
 def slot_store(big: dict, small: dict, slot: int, axes: dict) -> dict:
     """Write row 0 of a batch-1 cache into slot ``slot`` of a batched one,
     in place."""
-    for k, ax in axes.items():
-        big[k].select(ax, slot).copy_(small[k].select(ax, 0))
+    _tree_map(lambda b, s, ax: b.select(ax, slot).copy_(s.select(ax, 0)), big, small, axes)
     return big
 
 
 def take_slot(caches: dict, row: int, axes: dict) -> dict:
     """One slot of a batched cache as views, slot axis kept at extent 1."""
-    return {k: caches[k].narrow(ax, row, 1) for k, ax in axes.items()}
+    return _tree_map(lambda c, ax: c.narrow(ax, row, 1), caches, axes)
 
 
 def mask_prompt_tail(caches: dict, true_len: torch.Tensor) -> dict:
     """Invalidate entries a right-padded prefill wrote past the real prompt,
-    in place: ``pos`` returns to the +1e9 empty sentinel and ``len`` rewinds
-    to the true length.  ``true_len`` is per row ``(B,)``.  Valid only for
-    non-ring caches, where slot index == position.  Caches with neither
-    leaf (the recurrent ones) are left as they are."""
+    in place, in every KV cache of the tree: ``pos`` returns to the +1e9
+    empty sentinel and ``len`` rewinds to the true length.  ``true_len`` is
+    per row ``(B,)``.  Valid only for non-ring caches, where slot index ==
+    position.  Recurrent caches (no ``pos``/``len``) are left as they are."""
+    if caches is None:
+        return caches
     if "pos" not in caches:
+        for sub in caches.values():
+            if isinstance(sub, dict):
+                mask_prompt_tail(sub, true_len)
         return caches
     tl = true_len.to(torch.int32)
     pos = caches["pos"]

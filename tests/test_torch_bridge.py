@@ -85,7 +85,7 @@ def test_port_init_matches_reference_tree():
 
 
 def test_unported_families_name_their_roadmap_item():
-    for name in ("recurrentgemma-2b-smoke", "granite-moe-1b-a400m-smoke",
-                 "gemma3-12b-smoke", "whisper-medium-smoke"):
+    for name in ("granite-moe-1b-a400m-smoke", "gemma3-12b-smoke",
+                 "whisper-medium-smoke", "llava-next-34b-smoke"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(treg.get(name))

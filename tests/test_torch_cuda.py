@@ -19,7 +19,12 @@ one bf16 ulp of each element plus 1e-3 of the output's largest magnitude
 held to its plain version within 1e-5 of the output's (and the state's)
 largest magnitude: both run in fp32, the kernel's sum over the key index in
 one fixed order with fused multiply-adds, the plain version's through an
-fp32 einsum (TF32 is off for matmuls by default).
+fp32 einsum (TF32 is off for matmuls by default).  The linear-scan kernel
+(the RG-LRU's recurrence) is held to its plain version bitwise: each step
+is one rounded fp32 multiply and one rounded add in both, no FMA
+contraction.  Decode attention at recurrentgemma-2b's head_dim 256 and 10
+query heads per KV head is held bitwise too, on a ring whose rows are
+wrapped (every slot live), paged == contiguous at ``bk == block_size``.
 """
 
 import dataclasses
@@ -29,13 +34,19 @@ import pytest
 import torch
 
 from repro_torch import hw
+from repro_torch.arch.layers import Dispatch
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.registry import get
 from repro_torch.kernels import abft
 from repro_torch.kernels.conv2d import conv2d as cv
 from repro_torch.kernels.conv2d import ops as convops
 from repro_torch.kernels.flash_attention import decode_attention as dec
-from repro_torch.kernels.linear_scan.linear_scan import wkv6_cuda, wkv6_plain
+from repro_torch.kernels.linear_scan.linear_scan import (
+    linear_scan_cuda,
+    linear_scan_plain,
+    wkv6_cuda,
+    wkv6_plain,
+)
 from repro_torch.kernels.matmul import ops as mmops
 from repro_torch.kernels.matmul.matmul import (
     abft_block_rows,
@@ -397,6 +408,118 @@ def test_rwkv_engine_on_the_card_batched_equals_solo(cuda, matmul):
     wkv6_cuda.launches = 0
     outs = te.Engine(cfg, params, scfg).run(reqs)
     assert wkv6_cuda.launches > 0
+    assert [o.status for o in outs] == [te.RequestStatus.FINISHED] * 4
+    solo = te.Engine(cfg, params, scfg).run([reqs[1]])[0]
+    assert np.array_equal(solo, outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,d,S,bk", [(10, 256, 2048, 64), (10, 256, 256, 128), (16, 128, 256, 16)])
+def test_decode_kernels_at_head_dim_256_and_wide_groups(cuda, G, d, S, bk):
+    """recurrentgemma-2b's decode shape (8 rows, 1 KV head of 10 query
+    heads, head_dim 256, a 2048-slot ring, bk 64): kernel == plain bitwise,
+    paged == contiguous at bk == block_size; most rows wrapped (length S)."""
+    B, KV = 8, 1
+    g = torch.Generator(device=cuda).manual_seed(G * d + S)
+    q, k, v = (_randn(s, g, cuda) for s in ((B, KV, G, d), (B, S, KV, d), (B, S, KV, d)))
+    n_blk = S // bk
+    tables = (torch.randperm(B * n_blk, generator=g, device=cuda) + 1).reshape(B, n_blk)
+    tables = tables.to(torch.int32)
+    kpool, vpool = (_randn((B * n_blk + 1, bk, KV, d), g, cuda) for _ in "kv")
+    kpool[tables.long()] = k.reshape(B, n_blk, bk, KV, d)
+    vpool[tables.long()] = v.reshape(B, n_blk, bk, KV, d)
+    lengths = torch.tensor([1, 17, S // 2 + 3, S - 1, S, S, S, S], dtype=torch.int32,
+                           device=cuda)
+    contig = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
+    paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(contig, paged)
+    assert torch.equal(contig, dec.decode_attention_plain(q, k, v, lengths, bk=bk))
+    assert torch.equal(paged, dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths))
+    assert bool(torch.isfinite(contig.float()).all())
+
+
+def _scan_inputs(B, T, D, gen, dev):
+    a = torch.rand((B, T, D), generator=gen, device=dev)
+    x = torch.randn((B, T, D), generator=gen, device=dev)
+    h0 = torch.randn((B, D), generator=gen, device=dev)
+    return a, x, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(8, 1, 2560), (1, 2048, 2560), (3, 37, 100), (2, 0, 64),
+                                   (1, 5, 1)])
+def test_linear_scan_kernel_equals_plain_bitwise(cuda, B, T, D):
+    g = torch.Generator(device=cuda).manual_seed(B * 7 + T + D)
+    a, x, h0 = _scan_inputs(B, T, D, g, cuda)
+    got = linear_scan_cuda(a, x, h0)
+    again = linear_scan_cuda(a, x, h0)
+    want = linear_scan_plain(a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_linear_scan_strided_views_and_in_place_state(cuda):
+    """a and x as (B, T, D) views with row and step strides (the channel
+    axis contiguous); the state of a stacked cache updated in place."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    a, x, h0 = _scan_inputs(3, 40, 96, g, cuda)
+    wide_a = torch.rand((3, 80, 96), generator=g, device=cuda)
+    wide_a[:, ::2] = a
+    wide_x = torch.randn((3, 40, 200), generator=g, device=cuda)
+    wide_x[..., 50:146] = x
+    stack = torch.randn((2, 3, 96), generator=g, device=cuda)
+    stack[1] = h0
+    want = linear_scan_plain(a, x, h0)
+    out, hT = linear_scan_cuda(wide_a[:, ::2], wide_x[..., 50:146], stack[1], inplace=True)
+    torch.cuda.synchronize()
+    assert hT.data_ptr() == stack[1].data_ptr()
+    assert torch.equal(out, want[0]) and torch.equal(stack[1], want[1])
+
+
+@pytest.mark.cuda
+def test_linear_scan_rejects_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(22)
+    a, x, h0 = _scan_inputs(2, 5, 64, g, cuda)
+    with pytest.raises(ValueError):  # fp32 only
+        linear_scan_cuda(a.bfloat16(), x.bfloat16(), h0.bfloat16())
+    with pytest.raises(ValueError):
+        linear_scan_cuda(a, x, h0.double())
+    with pytest.raises(ValueError):  # channel axis contiguous
+        linear_scan_cuda(a.transpose(1, 2).contiguous().transpose(1, 2), x, h0)
+    with pytest.raises(ValueError):
+        linear_scan_cuda(a, x, h0[:1])
+    with pytest.raises(ValueError):  # no CPU operand beside a CUDA one
+        linear_scan_cuda(a, x, h0.cpu())
+
+
+@pytest.mark.cuda
+def test_hybrid_launch_counts_and_engine_batched_equals_solo(cuda):
+    """recurrentgemma-2b-smoke, widened to head_dim 64 (the decode kernel
+    takes 64, 128 and 256), on the card: one scan launch per rnn layer per
+    prefill and decode call, one decode-attention launch per attention
+    layer per decode step under ``attention="flash"``; batched output ==
+    solo output through the engine."""
+    cfg = dataclasses.replace(get("recurrentgemma-2b-smoke"), head_dim=64)
+    model = build(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    caches = model.init_caches(2, 32, cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 11), generator=torch.Generator(device=cuda).manual_seed(1),
+                         device=cuda)
+    linear_scan_cuda.launches = dec.flash_decode_cuda.launches = 0
+    model.prefill(params, toks, caches)
+    logits, _ = model.decode_step(params, toks[:, :1], caches,
+                                  dispatch=Dispatch(attention="flash"))
+    assert linear_scan_cuda.launches == 2 * 3
+    assert dec.flash_decode_cuda.launches == 1
+    assert bool(torch.isfinite(logits).all())
+    rng = np.random.default_rng(4)
+    reqs = [te.Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=m, request_id=i)
+            for i, (n, m) in enumerate([(6, 5), (9, 7), (4, 4), (13, 6)])]
+    scfg = te.ServeConfig(max_len=32, scheduler=te.SchedulerConfig(batch=2))
+    outs = te.Engine(cfg, params, scfg).run(reqs)
     assert [o.status for o in outs] == [te.RequestStatus.FINISHED] * 4
     solo = te.Engine(cfg, params, scfg).run([reqs[1]])[0]
     assert np.array_equal(solo, outs[1])

@@ -284,8 +284,12 @@ def test_bridge_carries_the_rwkv_tree():
 
 
 def test_unsupported_reason_names_the_next_slice():
+    """rwkv6 and recurrentgemma run; the next unported model family is
+    gemma3's local:global backbone (A3b), then MoE (A10c)."""
     assert tT.unsupported_reason(treg.get("rwkv6-1.6b")) is None
-    assert "A10b" in tT.unsupported_reason(treg.get("recurrentgemma-2b"))
+    assert tT.unsupported_reason(treg.get("recurrentgemma-2b")) is None
+    assert "A3b" in tT.unsupported_reason(treg.get("gemma3-12b"))
+    assert "A10c" in tT.unsupported_reason(treg.get("granite-moe-1b-a400m"))
 
 
 def test_launcher_serves_rwkv_on_the_cpu(capsys):
