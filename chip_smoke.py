@@ -78,7 +78,26 @@ result.  Phases, any failure of which exits non-zero:
    profiled decode step's card busy share and the two kernels' shares of
    it; (f) one full-width decode step through the kernels against the plain
    path, within 5% of the logit scale;
-8. check one full-width smollm-360m decode step through the kernels against
+8. flash attention, and the kernels widened to every dtype and head size
+   their Pallas kernels take: (a) the main path, ``ops.flash_attention`` at
+   four full-width bf16 shapes -- smollm-360m's prefill (8 x 1024 tokens, 15
+   query heads on 5 KV heads of 64, causal), recurrentgemma-2b's attention
+   layer (2048 tokens, 10 heads on 1 of 256, window 2048), gemma3-12b's
+   local layer (4096 tokens, 16 heads on 8 of 240, window 1024), all the
+   static variant, and a smollm chunk of 256 queries at offset 768 over a
+   1024-token cache (the dynamic one) -- with the kernel's launch count
+   over the phase equal to the calls; (b) each case against the plain
+   version, each (b, t, head) row within 1e-2 of its own norm, a repeat
+   run bitwise, the
+   kernel's median time with a cold L2 beside the bound (4 d operations
+   per live (query, key) pair over 989 TFLOP/s, or the bytes), the plain
+   version's time and SDPA's with the same mask; (c) decode attention at
+   head_dim 16 and 240 in bf16 (bitwise, paged == contiguous) and in fp32
+   at smollm-360m's shape (within 1e-6 of scale), the GEMM and the checksum
+   GEMM in fp32 at smollm-360m's decode shapes, one CONV layer in fp32 and
+   WKV-6 at key/value head sizes (16, 16) and (32, 64), each against its
+   plain version, with its times;
+9. check one full-width smollm-360m decode step through the kernels against
    the plain path on the card, then print the ``kernels`` summary and, last,
    the ``{"ok": true, ...}`` line.
 """
@@ -138,7 +157,8 @@ from repro_torch.kernels import abft  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d as conv  # noqa: E402
 from repro_torch.kernels.conv2d import ops as convops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode_attention as dec  # noqa: E402
-from repro_torch.kernels.flash_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.linear_scan import linear_scan as ls  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as lsops  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
@@ -158,6 +178,7 @@ WRAPPERS = {
     "conv2d": conv.conv2d_cuda,
     "wkv6": ls.wkv6_cuda,
     "linear_scan": ls.linear_scan_cuda,
+    "flash_attention": fa.flash_attention_cuda,
 }
 KERNEL_INFO = {
     "flash_decode": dict(
@@ -181,6 +202,9 @@ KERNEL_INFO = {
     "linear_scan": dict(
         route="cuda", source="src/repro_torch/kernels/csrc/linear_scan.cu",
         replaces="src/repro/kernels/linear_scan/linear_scan.py:55"),
+    "flash_attention": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:183"),
 }
 # the five projection GEMMs of smollm-360m: (K, N, B transposed)
 GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
@@ -241,20 +265,22 @@ def bound_ms(nbytes: float, flops: float, peak: float = hw.BF16_FLOPS_PER_S) -> 
 
 
 def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int,
-                 lengths: list[int], suffix: str = "") -> None:
-    """Both decode-attention kernels against their plain versions, bitwise,
-    at one serve path's shape (cache extent S, split bk; the paged pool's
-    block is bk); paged must equal contiguous bitwise at bk == bs.  The
-    readings go to ``results[name + suffix]``."""
+                 lengths: list[int], suffix: str = "", dtype=torch.bfloat16) -> None:
+    """Both decode-attention kernels against their plain versions (bf16
+    bitwise; fp32 within ``dec.FP32_TOL`` of the output's scale: fp64 sums
+    of fp32 products taken in two orders) at one serve path's shape (cache
+    extent S, split bk; the paged pool's block is bk); paged must equal
+    contiguous bitwise at bk == bs.  The readings go to
+    ``results[name + suffix]``."""
     g = torch.Generator(device=DEV).manual_seed(1)
-    q = torch.randn((B, KV, G, d), generator=g, device=DEV).bfloat16()
-    k = torch.randn((B, S, KV, d), generator=g, device=DEV).bfloat16()
-    v = torch.randn((B, S, KV, d), generator=g, device=DEV).bfloat16()
+    q = torch.randn((B, KV, G, d), generator=g, device=DEV).to(dtype)
+    k = torch.randn((B, S, KV, d), generator=g, device=DEV).to(dtype)
+    v = torch.randn((B, S, KV, d), generator=g, device=DEV).to(dtype)
     lengths = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     n_blk = S // bk
     perm = torch.randperm(B * n_blk, generator=g, device=DEV) + 1
     tables = perm.reshape(B, n_blk).to(torch.int32)
-    kpool = torch.randn((B * n_blk + 1, bk, KV, d), generator=g, device=DEV).bfloat16()
+    kpool = torch.randn((B * n_blk + 1, bk, KV, d), generator=g, device=DEV).to(dtype)
     vpool = torch.randn_like(kpool)
     kpool[tables.long()] = k.reshape(B, n_blk, bk, KV, d)
     vpool[tables.long()] = v.reshape(B, n_blk, bk, KV, d)
@@ -262,7 +288,7 @@ def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int
     contig = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
     paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
     torch.cuda.synchronize()
-    shape = f"B={B} KV={KV} G={G} d={d} S={S} bk=bs={bk}"
+    shape = f"B={B} KV={KV} G={G} d={d} S={S} bk=bs={bk} {str(dtype)[6:]}"
     if not torch.equal(contig, paged):
         fail(f"decode attention {shape}: paged differs from contiguous at bk == block_size")
     print(f"decode attention {shape}: paged == contiguous bitwise", flush=True)
@@ -270,8 +296,8 @@ def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int
     live = torch.clamp(lengths, 1, S).long()
     live_keys = int(live.sum())
     n_live_blocks = int(((live + bk - 1) // bk).sum())
-    qo_bytes = 2 * q.numel() * 2 + lengths.numel() * 4
-    kv_bytes = live_keys * KV * d * 2 * 2
+    qo_bytes = 2 * q.numel() * q.element_size() + lengths.numel() * 4
+    kv_bytes = live_keys * KV * d * 2 * q.element_size()
     flops = live_keys * KV * G * d * 4
 
     # the library yardstick: one SDPA call on K/V gathered to (B, H, S, d)
@@ -296,24 +322,29 @@ def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int
             n_live_blocks * 4,
         ),
     }
+    fp32 = dtype == torch.float32
     for name, (got, plain_fn, kern_fn, extra_bytes) in cases.items():
         want = plain_fn()
         err = (got.float() - want.float()).abs()
-        # bitwise: kernel and plain version sum order-independently (fp64
-        # accumulation, one rounding), which the ABFT fingerprint needs
-        if not torch.equal(got, want):
+        # bf16 bitwise: kernel and plain version sum order-independently
+        # (fp64 accumulation, one rounding), which the ABFT fingerprint needs
+        tol = dec.FP32_TOL * float(want.abs().max()) if fp32 else "bitwise"
+        bad = float(err.max()) > tol if fp32 else not torch.equal(got, want)
+        if bad:
             fail(f"{name} {shape}: kernel differs from the plain version in "
                  f"{int((got != want).sum())} elements (max |diff| {float(err.max()):.3e}); "
-                 f"they must be bitwise equal")
-        b_ms, b_by = bound_ms(qo_bytes + kv_bytes + extra_bytes, flops)
+                 f"tolerance {tol}")
+        b_ms, b_by = bound_ms(qo_bytes + kv_bytes + extra_bytes, flops,
+                              hw.FP32_FLOPS_PER_S if fp32 else hw.BF16_FLOPS_PER_S)
         results[name + suffix] = row = dict(
-            max_abs_err=float(err.max()), tolerance="bitwise",
+            max_abs_err=float(err.max()), tolerance=tol,
             ms=time_ms(kern_fn), plain_ms=time_ms(plain_fn, iters=5),
             library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
             bound_ms=b_ms, bound_by=b_by, shape=f"{shape} live_keys={live_keys}",
         )
         print(f"{name} {shape}: max_abs_err={row['max_abs_err']:.3e} "
-              f"(bitwise) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"({tol if isinstance(tol, str) else f'tol {tol:.3e}'}) ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
 
 
@@ -1177,7 +1208,7 @@ def rg_phase(totals: dict, results: dict) -> dict:
     # six of eight rows wrapped (every slot of the 2048-slot ring live)
     S = cfg.sliding_window
     check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                 cfg.resolved_head_dim, S, dec_ops._pick_decode_bk(S),
+                 cfg.resolved_head_dim, S, attn_ops._pick_decode_bk(S),
                  [37, 1500] + [S] * (SLOTS - 2), suffix="_d256")
     params = rg_params(cfg)
     n_params = sum(t.numel() for t in _leaves(params))
@@ -1206,6 +1237,265 @@ def rg_phase(totals: dict, results: dict) -> dict:
     step_err = check_decode_step(cfg, params)
     return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof,
                 decode_step_max_abs_err=step_err)
+
+
+# ---------------------------------------------------- flash-attention phase --
+
+FLASH_TOL = 1e-2  # of each (b, t, head) row's norm (bf16 p and output)
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ||got - want|| / ||want|| over the rows of the last
+    dimension.  Each row is held to its own scale: a late query row that
+    averages hundreds of keys is ~20x smaller than an early one, so one
+    scale for the whole tensor would hide a dropped or misplaced key tile."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def flash_cases() -> list[tuple]:
+    """(name, B, Tq, Tk, KV, G, d, kwargs) at the served models' published
+    head shapes: smollm-360m's prefill of 8 prompts of 1024 tokens,
+    recurrentgemma-2b's attention layer over a 2048-token prompt (its window
+    is 2048), gemma3-12b's local layer over 4096 tokens (window 1024), and a
+    smollm chunk of 256 queries at offset 768 over a 1024-token cache."""
+    out = []
+    for name, arch, B, T, kw in (
+        ("smollm-360m prefill", "smollm-360m", 8, 1024, {}),
+        ("recurrentgemma-2b attention prefill", "recurrentgemma-2b", 1, 2048, None),
+        ("gemma3-12b local layer", "gemma3-12b", 1, 4096, None),
+        ("smollm-360m chunk", "smollm-360m", 8, 1024, dict(q_offset=768, kv_len=1024)),
+    ):
+        cfg = get(arch)
+        kw = dict(window=cfg.sliding_window) if kw is None else kw
+        Tq = T - kw.get("q_offset", 0)
+        out.append((name, B, Tq, T, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                    cfg.resolved_head_dim, kw))
+    return out
+
+
+def flash_live(Tq: int, Tk: int, kw: dict):
+    """The (Tq, Tk) mask of live (query, key) pairs of one head, as the
+    kernel masks them (causal, the window, keys below kv_len)."""
+    q_pos = kw.get("q_offset", 0) + torch.arange(Tq, device=DEV)[:, None]
+    k_pos = torch.arange(Tk, device=DEV)[None, :]
+    ok = (k_pos < min(kw.get("kv_len", Tk), Tk)) & (q_pos >= k_pos)
+    if kw.get("window") is not None:
+        ok &= q_pos - k_pos < kw["window"]
+    return ok
+
+
+def flash_phase(totals: dict, results: dict) -> None:
+    """Phase 8 (a, b) of the module docstring."""
+    cases = flash_cases()
+    g = torch.Generator(device=DEV).manual_seed(13)
+    data = [tuple(torch.randn(s, generator=g, device=DEV).bfloat16()
+                  for s in ((B, Tq, KV, G, d), (B, Tk, KV, d), (B, Tk, KV, d)))
+            for _, B, Tq, Tk, KV, G, d, _ in cases]
+
+    print("-- the main path: ops.flash_attention at the four full-width shapes", flush=True)
+    for wr in WRAPPERS.values():
+        wr.launches = 0
+    torch.cuda.synchronize()
+    outs = [attn_ops.flash_attention(q, k, v, **c[7]) for (q, k, v), c in zip(data, cases)]
+    torch.cuda.synchronize()
+    launches = {n: wr.launches for n, wr in WRAPPERS.items()}
+    if launches["flash_attention"] != len(cases):
+        fail(f"flash_attention: {launches['flash_attention']} kernel launches over "
+             f"{len(cases)} calls")
+    if any(c for n, c in launches.items() if n != "flash_attention"):
+        fail(f"flash phase launched other kernels: {launches}")
+    totals["flash_attention"] += launches["flash_attention"]
+    print(f"flash_attention launched {launches['flash_attention']} times over "
+          f"{len(cases)} calls", flush=True)
+
+    print(f"-- each case against the plain version (each (b, t, head) row within "
+          f"{FLASH_TOL} of its own norm), repeat runs bitwise; times with a cold L2 "
+          f"(kernel and SDPA: median of 20; plain: mean of 3)", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for (q, k, v), out, (name, B, Tq, Tk, KV, G, d, kw) in zip(data, outs, cases):
+        shape = " ".join([f"B={B} Tq={Tq} Tk={Tk} heads {KV * G} on {KV} d={d}"]
+                         + [f"{a}={b}" for a, b in kw.items()])
+        again = attn_ops.flash_attention(q, k, v, **kw)
+        want = attn_ops.flash_attention(q, k, v, impl="plain", **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        rel = row_rel_err(out, want)
+        if not (rel <= FLASH_TOL and torch.equal(out, again)
+                and bool(torch.isfinite(out).all())):
+            fail(f"flash_attention {name} ({shape}): row error {rel:.3e} of the row's norm "
+                 f"(tol {FLASH_TOL}), max abs err {err:.3e}, repeat bitwise "
+                 f"{torch.equal(out, again)}")
+        ok = flash_live(Tq, Tk, kw)
+        live_pairs = int(ok.sum()) * B * KV * G
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound_ms(nbytes, 4.0 * d * live_pairs)
+        # the yardstick: SDPA on (B, H, T, d) copies, GQA inside, the same mask
+        qh = q.reshape(B, Tq, KV * G, d).transpose(1, 2).contiguous()
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+        causal = Tq == Tk and bool(torch.equal(ok, torch.ones_like(ok).tril()))
+        mask = None if causal else ok
+
+        def lib(qh=qh, kh=kh, vh=vh, mask=mask, causal=causal):
+            return sdpa(qh, kh, vh, attn_mask=mask, is_causal=causal, enable_gqa=True)
+
+        lib_out = lib().transpose(1, 2).reshape(q.shape)
+        lib_err = float((lib_out.float() - want.float()).abs().max())
+        lib_rel = row_rel_err(lib_out, want)
+        del lib_out
+        row = dict(
+            case=name, shape=shape, live_pairs=live_pairs, max_abs_err=err,
+            max_row_rel_err=rel, row_rel_tolerance=FLASH_TOL,
+            ms=statistics.median(time_samples(lambda q=q, k=k, v=v, kw=kw:
+                                              attn_ops.flash_attention(q, k, v, **kw))),
+            plain_ms=time_ms(lambda q=q, k=k, v=v, kw=kw:
+                             attn_ops.flash_attention(q, k, v, impl="plain", **kw), iters=3),
+            library_ms=statistics.median(time_samples(lib)), library_max_abs_err=lib_err,
+            library_row_rel_err=lib_rel,
+            bound_ms=b_ms, bound_by=b_by, flops=4.0 * d * live_pairs, bytes=nbytes,
+        )
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        rows.append(row)
+        print(f"flash_attention {name} ({shape}): max_abs_err={err:.3e} row error "
+              f"{rel:.3e} of its norm (tol {FLASH_TOL}), repeat bitwise; "
+              f"ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) bound_ms={b_ms:.4f} "
+              f"({b_by}, {row['flops'] / 1e9:.1f} GFLOP of {live_pairs} live pairs) plain_ms={row['plain_ms']:.3f} "
+              f"library_ms={row['library_ms']:.4f} (SDPA, {'causal' if causal else 'mask'}; "
+              f"|SDPA - plain| {lib_err:.3e}, row error {lib_rel:.3e})", flush=True)
+    del data, outs
+
+    def total(key):
+        return sum(r[key] for r in rows)
+
+    by_flops = total("flops") / hw.BF16_FLOPS_PER_S >= total("bytes") / hw.HBM_BYTES_PER_S
+    results["flash_attention"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=total("ms"),
+        plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+        bound_ms=total("bound_ms"), bound_by="operations" if by_flops else "bytes",
+        shape="sum over the four full-width cases, bf16", cases=rows,
+    )
+
+
+def check_widened(results: dict) -> None:
+    """Phase 8 (c): each widened kernel at the dtypes and sizes it took on
+    in this slice, against its plain version, with its times."""
+    lengths = [0, 1, 17, 100, 255, 300, 777, 1024]
+    print("-- decode attention at the -smoke head_dim 16 (4 heads on 2) and gemma3-12b's "
+          "240 (16 on 8, a 1024-slot window ring, bk 64), bf16; smollm-360m's shape in "
+          "fp32", flush=True)
+    check_decode(results, SLOTS, 2, 2, 16, MAX_LEN, BS, lengths, suffix="_d16")
+    cfg = get("gemma3-12b")
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, cfg.sliding_window,
+                 attn_ops._pick_decode_bk(cfg.sliding_window), lengths, suffix="_d240")
+    check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS, lengths, suffix="_fp32",
+                 dtype=torch.float32)
+
+    print("-- the GEMM and the checksum GEMM in fp32 at smollm-360m's five projection "
+          "shapes, M = 8 (within 1e-5 of the output's scale; the checksum GEMM's product "
+          "bitwise the GEMM's)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch.matmul in full fp32
+    g = torch.Generator(device=DEV).manual_seed(14)
+    rows = []
+    for K, N, trans_b in GEMM_SHAPES:
+        a = torch.randn((SLOTS, K), generator=g, device=DEV)
+        b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=DEV)
+        got = mm.matmul_cuda(a, b, trans_b=trans_b)
+        prod, checks = mm.matmul_abft_cuda(a, b, trans_b=trans_b)
+        want, want_checks = mm.matmul_abft_plain(a, b, trans_b=trans_b)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = 1e-5 * float(want.abs().max())
+        c_err = float((checks - want_checks).abs().max())
+        if not (err <= tol and torch.equal(prod, got)
+                and not bool(mmops.matmul_abft(a, b, trans_b=trans_b)[1])):
+            fail(f"fp32 gemm {SLOTS}x{K}x{N}: err {err:.3e} (tol {tol:.3e}), checksum GEMM "
+                 f"product bitwise {torch.equal(prod, got)}")
+        lib = (lambda a=a, b=b: a @ b.T) if trans_b else (lambda a=a, b=b: a @ b)
+        b_ms, b_by = bound_ms(4 * (SLOTS * K + K * N + SLOTS * N), 2.0 * SLOTS * N * K,
+                              hw.FP32_FLOPS_PER_S)
+        row = dict(
+            M=SLOTS, K=K, N=N, trans_b=trans_b, max_abs_err=err, tolerance=tol,
+            checks_max_abs_err=c_err,
+            ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)),
+            abft_ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_abft_cuda(a, b, trans_b=t)),
+            plain_ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_plain(a, b, trans_b=t)),
+            library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        )
+        rows.append(row)
+        print(f"fp32 gemm M={SLOTS} K={K} N={N} trans_b={trans_b}: max_abs_err={err:.3e} "
+              f"(tol {tol:.3e}) checksum err {c_err:.3e} ms={row['ms']:.4f} "
+              f"abft_ms={row['abft_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    results["gemm_fp32"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        **{k: sum(r[k] for r in rows) for k in ("ms", "abft_ms", "plain_ms", "library_ms",
+                                                "bound_ms")},
+        bound_by="bytes", shape=f"sum over the five (K,N) projection shapes at M={SLOTS}, fp32",
+        cases=rows)
+
+    print("-- conv2d in fp32: AlexNet conv3 (13 x 13, C 256, K 384, 3 x 3) at batch 16, "
+          "tile searched in 4-byte words (within 1e-5 of the element + 1e-5 of the scale)",
+          flush=True)
+    X, C, K, F = 13, 256, 384, 3
+    x = torch.randn((CONV_BATCH, X + F - 1, X + F - 1, C), generator=g, device=DEV)
+    w = torch.randn((F, F, C, K), generator=g, device=DEV) * 0.05
+    tiles = convops.choose_conv_blocks(CONV_BATCH, X, X, C, K, F, F, word_bytes=4)
+    got = conv.conv2d_cuda(x, w, tiles)
+    want = conv.conv2d_plain(x, w, tiles)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    if bool((err > 1e-5 * want.abs() + 1e-5 * want.abs().max()).any()):
+        fail(f"fp32 conv2d: max |diff| {float(err.max()):.3e} beyond tolerance")
+    torch.backends.cudnn.allow_tf32 = False
+    xn = x.permute(0, 3, 1, 2)
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    flops = 2.0 * CONV_BATCH * X * X * C * K * F * F
+    b_ms, b_by = bound_ms(4 * (x.numel() + w.numel() + got.numel()), flops,
+                          hw.FP32_FLOPS_PER_S)
+    results["conv2d_fp32"] = row = dict(
+        tiles=dataclasses.asdict(tiles), smem=tiles.smem_bytes(F, F, 4),
+        max_abs_err=float(err.max()),
+        ms=statistics.median(time_samples(lambda: conv.conv2d_cuda(x, w, tiles))),
+        plain_ms=time_ms(lambda: conv.conv2d_plain(x, w, tiles), iters=3),
+        library_ms=statistics.median(
+            time_samples(lambda: torch.nn.functional.conv2d(xn, wn))),
+        bound_ms=b_ms, bound_by=b_by, shape=f"B={CONV_BATCH} X=Y={X} C={C} K={K} F={F}x{F}")
+    print(f"fp32 conv2d tile ({tiles.bx},{tiles.by},{tiles.bc},{tiles.bk}), smem "
+          f"{row['smem']} B: max |diff| {row['max_abs_err']:.3e} ms={row['ms']:.4f} "
+          f"({flops / row['ms'] / 1e9:.1f} TFLOP/s) plain_ms={row['plain_ms']:.3f} "
+          f"library_ms={row['library_ms']:.4f} (cuDNN fp32, TF32 off) bound_ms={b_ms:.4f} "
+          f"({b_by})", flush=True)
+
+    print("-- WKV-6 at key/value head sizes (16, 16) and (32, 64), (B, H, T) = (1, 32, 256) "
+          f"(within {WKV_TOL} of scale)", flush=True)
+    for Dk, Dv in ((16, 16), (32, 64)):
+        B, H, T = 1, 32, 256
+
+        def stream(D):
+            return torch.randn((B, T, H, D), generator=g, device=DEV).transpose(1, 2)
+
+        args = (stream(Dk), stream(Dk), stream(Dv), torch.exp(-torch.exp(stream(Dk) - 1.0)),
+                0.5 * torch.randn((H, Dk), generator=g, device=DEV),
+                torch.randn((B, H, Dk, Dv), generator=g, device=DEV))
+        got = ls.wkv6_cuda(*args)
+        want = ls.wkv6_plain(*args)
+        torch.cuda.synchronize()
+        err, tol = wkv_err(got, want)
+        if not err <= tol:
+            fail(f"wkv6 Dk={Dk} Dv={Dv}: max err {err:.3e} > {tol:.3e}")
+        nbytes = 4 * (B * H * T * (3 * Dk + 2 * Dv) + H * Dk + 2 * B * H * Dk * Dv)
+        b_ms, b_by = bound_ms(nbytes, 7.0 * B * H * T * Dk * Dv, hw.FP32_FLOPS_PER_S)
+        key = f"wkv6_{Dk}x{Dv}"
+        results[key] = row = dict(
+            B=B, H=H, T=T, Dk=Dk, Dv=Dv, max_abs_err=err, tolerance=tol,
+            ms=time_ms(lambda a=args: ls.wkv6_cuda(*a)),
+            plain_ms=time_ms(lambda a=args: ls.wkv6_plain(*a), iters=3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        print(f"wkv6 Dk={Dk} Dv={Dv} B={B} H={H} T={T}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} bound_ms={b_ms:.5f} "
+              f"({b_by})", flush=True)
 
 
 def _leaves(tree):
@@ -1306,6 +1596,11 @@ def main() -> None:
     print("== recurrentgemma-2b (full width, random weights) through the linear-scan and "
           "decode-attention kernels", flush=True)
     rgemma = rg_phase(totals, results)
+
+    print("== flash attention at full width, and the kernels widened to every dtype and "
+          "head size their Pallas kernels take", flush=True)
+    flash_phase(totals, results)
+    check_widened(results)
 
     print("== reference check", flush=True)
     check_decode_step(cfg, params)

@@ -8,7 +8,8 @@ tile, ``bk`` output channels), the reduction over ``bc``-channel steps of
 C, then the first filter axis (H), then the second (W).  Its tile is a
 :class:`ConvTiles` that ``ops.choose_conv_blocks`` takes from the paper's
 blocking search on the H100's (shared memory, HBM) hierarchy.  It takes
-bf16 operands and raises for any other dtype.
+bf16 operands (tensor cores) or fp32 operands (CUDA cores, full fp32, no
+TF32) and raises for any other dtype.
 
 :func:`conv2d_plain` is its plain version, in the TPU kernel's order: C
 blocks outermost, then the two filter axes, each step one fp32
@@ -37,7 +38,8 @@ MAX_WARP_TILES = 16
 SMEM_ROW_PAD = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGS = {"conv2d_bf16": [_P] * 3 + [_I] * 11 + [_P]}
+_SIGS = {"conv2d": [_P] * 3 + [_I] * 12 + [_P]}
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -55,14 +57,14 @@ class ConvTiles:
     bc: int
     bk: int
 
-    def smem_bytes(self, FX: int, FY: int) -> int:
-        """Shared memory the kernel stages per block: the haloed bf16 input
-        tile and the ``FX x FY x bc`` filter slice of ``bk`` output channels
+    def smem_bytes(self, FX: int, FY: int, word_bytes: int = 2) -> int:
+        """Shared memory the kernel stages per block: the haloed input tile
+        and the ``FX x FY x bc`` filter slice of ``bk`` output channels
         (rounded up to whole warp tiles), rows padded as the kernel pads
-        them."""
+        them, in words of ``word_bytes`` (2 for bf16, 4 for fp32)."""
         inp = (self.bx + FX - 1) * (self.by + FY - 1) * (self.bc + SMEM_ROW_PAD)
         bkp = _ceil_div(self.bk, WARP_TILE) * WARP_TILE
-        return 2 * (inp + FX * FY * self.bc * (bkp + SMEM_ROW_PAD))
+        return word_bytes * (inp + FX * FY * self.bc * (bkp + SMEM_ROW_PAD))
 
     def warp_tiles(self) -> int:
         """32 x 32 accumulator tiles that cover the block's output tile."""
@@ -89,8 +91,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, tiles: ConvTiles) -> None:
         raise ValueError(f"conv2d needs both operands on one CUDA device: {x.device}, {w.device}")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"operands are on {x.device}, not the current CUDA device")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise ValueError(f"kernel takes bf16 operands, got {x.dtype}, {w.dtype}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"kernel takes two bf16 or two fp32 operands, got {x.dtype}, {w.dtype}")
     if x.ndim != 4 or w.ndim != 4 or not x.is_contiguous() or not w.is_contiguous():
         raise ValueError(f"kernel takes contiguous NHWC x and HWIO w: {x.shape}, {w.shape}")
     if w.shape[2] != x.shape[3]:
@@ -112,15 +114,16 @@ def conv2d_cuda(x: torch.Tensor, w: torch.Tensor, tiles: ConvTiles) -> torch.Ten
     _check(x, w, tiles)
     B, H, W, C = x.shape
     FX, FY, _, K = w.shape
-    out = torch.empty((B, H - FX + 1, W - FY + 1, K), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((B, H - FX + 1, W - FY + 1, K), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.library("conv2d", _SIGS)
-    err = lib.conv2d_bf16(
+    err = lib.conv2d(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H, W, C, K, FX, FY,
-        tiles.bx, tiles.by, tiles.bc, tiles.bk, torch.cuda.current_stream().cuda_stream,
+        tiles.bx, tiles.by, tiles.bc, tiles.bk, int(x.dtype == torch.float32),
+        torch.cuda.current_stream().cuda_stream,
     )
-    _build.check(err, "conv2d_bf16")
+    _build.check(err, "conv2d")
     conv2d_cuda.launches += 1
     return out
 

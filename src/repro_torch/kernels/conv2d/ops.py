@@ -44,13 +44,13 @@ def _align(f: int, n: int, a: int) -> int:
     return b
 
 
-def _fit(t: ConvTiles, Ho: int, Wo: int, FX: int, FY: int) -> ConvTiles:
+def _fit(t: ConvTiles, Ho: int, Wo: int, FX: int, FY: int, word_bytes: int) -> ConvTiles:
     """Shrink an aligned tile until the kernel takes it: at most
     ``MAX_WARP_TILES`` accumulator tiles (``bk`` halves while it is wider
     than one warp tile, then the pixel tile's larger side steps down to
-    the next divisor of its extent), and shared memory within
-    ``hw.SMEM_BUDGET_BYTES`` (``bc`` halves, then ``bk``, then the pixel
-    tile)."""
+    the next divisor of its extent), and shared memory, in words of
+    ``word_bytes``, within ``hw.SMEM_BUDGET_BYTES`` (``bc`` halves, then
+    ``bk``, then the pixel tile)."""
 
     def smaller_pixels(t: ConvTiles) -> ConvTiles:
         if t.bx >= t.by and t.bx > 1:
@@ -66,7 +66,7 @@ def _fit(t: ConvTiles, Ho: int, Wo: int, FX: int, FY: int) -> ConvTiles:
                 t = ConvTiles(t.bx, t.by, t.bc, half(t.bk, t.bk))
             else:
                 t = smaller_pixels(t)
-        elif t.smem_bytes(FX, FY) > hw.SMEM_BUDGET_BYTES:
+        elif t.smem_bytes(FX, FY, word_bytes) > hw.SMEM_BUDGET_BYTES:
             if t.bc > hw.MMA_ALIGN:
                 t = ConvTiles(t.bx, t.by, half(t.bc, t.bc), t.bk)
             elif t.bk > hw.MMA_ALIGN:
@@ -82,7 +82,7 @@ def _fit(t: ConvTiles, Ho: int, Wo: int, FX: int, FY: int) -> ConvTiles:
 @functools.lru_cache(maxsize=256)
 def choose_conv_blocks(
     B: int, Ho: int, Wo: int, C: int, K: int, FX: int, FY: int,
-    levels: tuple[MemLevel, ...] | None = None,
+    levels: tuple[MemLevel, ...] | None = None, word_bytes: int = 2,
 ) -> ConvTiles:
     """Run the blocking search on the conv nest (B = 1, as in the
     reference) and return the block tile.
@@ -91,7 +91,9 @@ def choose_conv_blocks(
     ``hw.hopper_levels()``, ``bc`` and ``bk`` are rounded by :func:`_align`
     to the MMA alignment (16; C = 3 is zero-padded to 16 in shared memory,
     ragged edges are masked), and :func:`_fit` shrinks the tile to what
-    the kernel takes.  With the reference's TPU ``levels`` the search's
+    the kernel takes, its shared memory reckoned in words of ``word_bytes``
+    (2 for the bf16 kernel, 4 for the fp32 one; the search itself counts
+    the paper's 16-bit words).  With the reference's TPU ``levels`` the search's
     C and K factors are rounded by the same rule at alignment 1 (a power of
     two dividing the extent), which is the reference's ``(bc, bk)``; X and
     Y are the search's factors as they are."""
@@ -108,7 +110,7 @@ def choose_conv_blocks(
     if levels is not None:
         return ConvTiles(bx, by, _align(bc, C, 1), _align(bk, K, 1))
     t = ConvTiles(bx, by, _align(bc, C, hw.MMA_ALIGN), _align(bk, K, hw.MMA_ALIGN))
-    return _fit(t, Ho, Wo, FX, FY)
+    return _fit(t, Ho, Wo, FX, FY, word_bytes)
 
 
 def conv2d(
@@ -123,4 +125,6 @@ def conv2d(
         return conv2d_ref(x, w, stride=stride)
     B, H, W, C = x.shape
     FX, FY, _, K = w.shape
-    return conv2d_cuda(x, w, choose_conv_blocks(B, H - FX + 1, W - FY + 1, C, K, FX, FY))
+    tiles = choose_conv_blocks(B, H - FX + 1, W - FY + 1, C, K, FX, FY,
+                               word_bytes=x.element_size())
+    return conv2d_cuda(x, w, tiles)

@@ -1,5 +1,6 @@
-// Direct conv2d for Hopper (sm_90a) as an implicit GEMM: NHWC bf16 input,
-// HWIO bf16 filter, fp32 accumulation, bf16 output; valid, stride 1.
+// Direct conv2d for Hopper (sm_90a) as an implicit GEMM: NHWC input, HWIO
+// filter, fp32 accumulation, output in the operands' type (bf16 or fp32);
+// valid, stride 1.
 //
 // Replaces the TPU kernel conv2d_pallas (repro/kernels/conv2d/conv2d.py),
 // the paper's Algorithm-1 CONV nest.  The TPU kernel holds a whole image
@@ -33,6 +34,15 @@
 // SM overlap one's loads with the other's math), and mma.sync from
 // ldmatrix is bounded by shared-memory reads well below the wgmma peak.
 // A TMA / wgmma pipeline is later work.
+//
+// fp32 operands take a second body, conv2d_f32_kernel, with the same grid,
+// tile, staging and warp tiles, on the CUDA cores in full fp32 (no TF32,
+// which would round the operands to 10 mantissa bits): in each 32 x 32
+// warp tile a lane owns 4 pixels x 8 output channels and adds one fused
+// multiply-add per input channel, in the bf16 body's order (C steps, fx,
+// fy, channels).  Its shared memory holds 4-byte words, so its tiles are
+// fitted to the budget in 4-byte words (ConvTiles.smem_bytes).  Bound:
+// fp32 operations on the CUDA cores (66.9 TFLOP/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,12 +57,13 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int WT = 32;            // warp tile: 32 pixels x 32 output channels
 constexpr int TILES_PER_WARP = 2; // so a block's output tile is <= 16 warp tiles
-constexpr int PAD = 8;            // bf16 padding of each shared-memory row
+constexpr int PAD = 8;            // padding of each shared-memory row, in elements
 
+template <typename T>
 struct Params {
-  const bf16* x;   // (B, H, W, C)
-  const bf16* w;   // (FX, FY, C, K)
-  bf16* out;       // (B, Ho, Wo, K)
+  const T* x;      // (B, H, W, C)
+  const T* w;      // (FX, FY, C, K)
+  T* out;          // (B, Ho, Wo, K)
   int H, W, C, K, FX, FY, Ho, Wo;
   int bx, by, bc, bk;
   int tiles_w;     // pixel tiles along W
@@ -96,7 +107,7 @@ __device__ __forceinline__ uint4 load8(const bf16* src, bool vec, int n_valid) {
   return v;
 }
 
-__global__ void __launch_bounds__(THREADS, 2) conv2d_kernel(const Params p) {
+__global__ void __launch_bounds__(THREADS, 2) conv2d_kernel(const Params<bf16> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int IH = p.bx + p.FX - 1, IW = p.by + p.FY - 1;
   const int cs = p.bc + PAD;                   // input: one row per pixel
@@ -213,41 +224,173 @@ __global__ void __launch_bounds__(THREADS, 2) conv2d_kernel(const Params p) {
   }
 }
 
-}  // namespace
+// 4 fp32 from src (zeros past n_valid) as one 16-byte value
+__device__ __forceinline__ float4 load4(const float* src, bool vec, int n_valid) {
+  if (vec && n_valid >= 4) return *reinterpret_cast<const float4*>(src);
+  float4 v;
+  v.x = n_valid > 0 ? src[0] : 0.f;
+  v.y = n_valid > 1 ? src[1] : 0.f;
+  v.z = n_valid > 2 ? src[2] : 0.f;
+  v.w = n_valid > 3 ? src[3] : 0.f;
+  return v;
+}
 
-// x (B, H, W, C), w (FX, FY, C, K), out (B, H-FX+1, W-FY+1, K): bf16,
-// contiguous.  Tile (bx, by, bc, bk): bc and bk multiples of 16, at most 16
-// warp tiles of 32 x 32 per block; shared memory above 227 KB is refused.
-extern "C" int conv2d_bf16(const void* x, const void* w, void* out, int B, int H,
-                           int W, int C, int K, int FX, int FY, int bx, int by,
-                           int bc, int bk, void* stream) {
+// The same tile and staging as conv2d_kernel, fp32 on the CUDA cores: in
+// each 32 x 32 warp tile lane l owns pixels 4 (l / 4) .. + 3 and output
+// channels 8 (l % 4) .. + 7
+__global__ void __launch_bounds__(THREADS, 2) conv2d_f32_kernel(const Params<float> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int IH = p.bx + p.FX - 1, IW = p.by + p.FY - 1;
+  const int cs = p.bc + PAD;
+  const int bkp = (p.bk + WT - 1) / WT * WT;
+  const int ks = bkp + PAD;
+  float* in_s = reinterpret_cast<float*>(smem_raw);
+  float* w_s = in_s + IH * IW * cs;
+
+  const int h0 = (blockIdx.x / p.tiles_w) * p.bx, w0 = (blockIdx.x % p.tiles_w) * p.by;
+  const int k0 = blockIdx.y * p.bk;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lp = lane >> 2, lc = lane & 3;
+  const int npix = p.bx * p.by;
+  const int nt = bkp / WT;
+  const int units = (npix + WT - 1) / WT * nt;
+
+  int pix[TILES_PER_WARP][4];
+  float acc[TILES_PER_WARP][4][8];
+#pragma unroll
+  for (int s = 0; s < TILES_PER_WARP; ++s) {
+    const int um = (warp + WARPS * s) / nt;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int r = um * WT + lp * 4 + i;
+      if (r >= npix) r = 0;  // padding rows: any valid address, never stored
+      pix[s][i] = (r / p.by) * IW + r % p.by;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[s][i][e] = 0.f;
+    }
+  }
+
+  const float* xb = p.x + (long long)b * p.H * p.W * p.C;
+  const int cch = p.bc / 4, kch = bkp / 4;
+  for (int c0 = 0; c0 < p.C; c0 += p.bc) {
+    __syncthreads();  // the previous step's reads are done
+    for (int idx = threadIdx.x; idx < IH * IW * cch; idx += THREADS) {
+      const int px = idx / cch, cc = (idx % cch) * 4;
+      const int hh = h0 + px / IW, ww = w0 + px % IW, c = c0 + cc;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (hh < p.H && ww < p.W && c < p.C)
+        v = load4(xb + ((long long)hh * p.W + ww) * p.C + c, p.vec_x, p.C - c);
+      *reinterpret_cast<float4*>(in_s + px * cs + cc) = v;
+    }
+    for (int idx = threadIdx.x; idx < p.FX * p.FY * p.bc * kch; idx += THREADS) {
+      const int row = idx / kch, kk = (idx % kch) * 4;
+      const int f = row / p.bc, c = c0 + row % p.bc, k = k0 + kk;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < p.C && kk < p.bk && k < p.K)
+        v = load4(p.w + ((long long)f * p.C + c) * p.K + k, p.vec_w,
+                  min(p.K - k, p.bk - kk));
+      *reinterpret_cast<float4*>(w_s + row * ks + kk) = v;
+    }
+    __syncthreads();
+
+    for (int fx = 0; fx < p.FX; ++fx) {
+      for (int fy = 0; fy < p.FY; ++fy) {
+        const int shift = fx * IW + fy;
+        const float* wf = w_s + (fx * p.FY + fy) * p.bc * ks;
+        for (int c = 0; c < p.bc; ++c) {
+#pragma unroll
+          for (int s = 0; s < TILES_PER_WARP; ++s) {
+            const int u = warp + WARPS * s;
+            if (u >= units) continue;
+            const float* wr = wf + c * ks + (u % nt) * WT + lc * 8;
+            float a[4], bv[8];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) a[i] = in_s[(pix[s][i] + shift) * cs + c];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) bv[e] = wr[e];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int e = 0; e < 8; ++e) acc[s][i][e] = fmaf(a[i], bv[e], acc[s][i][e]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < TILES_PER_WARP; ++s) {
+    const int u = warp + WARPS * s;
+    if (u >= units) continue;
+    const int um = u / nt, n0 = (u % nt) * WT;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = um * WT + lp * 4 + i;
+      const int h = h0 + r / p.by, ww = w0 + r % p.by;
+      if (r >= npix || h >= p.Ho || ww >= p.Wo) continue;
+      float* orow = p.out + (((long long)b * p.Ho + h) * p.Wo + ww) * p.K;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int kl = n0 + lc * 8 + e, k = k0 + kl;
+        if (kl < p.bk && k < p.K) orow[k] = acc[s][i][e];
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, void* out, int B, int H, int W,
+                   int C, int K, int FX, int FY, int bx, int by, int bc, int bk,
+                   cudaStream_t stream) {
   if (B < 1 || C < 1 || K < 1 || FX < 1 || FY < 1 || H < FX || W < FY || bx < 1 ||
       by < 1 || bc < 16 || bk < 16 || bc % 16 || bk % 16)
     return cudaErrorInvalidValue;
   const int bkp = (bk + WT - 1) / WT * WT;
   if ((long long)((bx * by + WT - 1) / WT) * (bkp / WT) > WARPS * TILES_PER_WARP)
     return cudaErrorInvalidValue;
-  Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.w = static_cast<const bf16*>(w);
-  p.out = static_cast<bf16*>(out);
+  Params<T> p;
+  p.x = static_cast<const T*>(x);
+  p.w = static_cast<const T*>(w);
+  p.out = static_cast<T*>(out);
   p.H = H; p.W = W; p.C = C; p.K = K; p.FX = FX; p.FY = FY;
   p.Ho = H - FX + 1; p.Wo = W - FY + 1;
   p.bx = bx; p.by = by; p.bc = bc; p.bk = bk;
   p.tiles_w = (p.Wo + by - 1) / by;
-  p.vec_x = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  p.vec_w = K % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  p.vec_x = C % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  p.vec_w = K % VEC == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const long long smem =
-      2LL * ((long long)(bx + FX - 1) * (by + FY - 1) * (bc + PAD) +
-             (long long)FX * FY * bc * (bkp + PAD));
+      (long long)sizeof(T) * ((long long)(bx + FX - 1) * (by + FY - 1) * (bc + PAD) +
+                              (long long)FX * FY * bc * (bkp + PAD));
   if (smem > 0x7fffffff) return cudaErrorInvalidValue;
+  void (*kern)(Params<T>);
+  if constexpr (sizeof(T) == 4)
+    kern = conv2d_f32_kernel;
+  else
+    kern = conv2d_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      conv2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)((p.Ho + bx - 1) / bx) * p.tiles_w;
   if (tiles > 0x7fffffff || (K + bk - 1) / bk > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   const dim3 grid((unsigned)tiles, (K + bk - 1) / bk, B);
-  conv2d_kernel<<<grid, THREADS, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kern<<<grid, THREADS, (size_t)smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, H, W, C), w (FX, FY, C, K), out (B, H-FX+1, W-FY+1, K): all bf16
+// (fp32 = 0) or all fp32 (fp32 = 1), contiguous.  Tile (bx, by, bc, bk): bc
+// and bk multiples of 16, at most 16 warp tiles of 32 x 32 per block; shared
+// memory above 227 KB is refused.
+extern "C" int conv2d(const void* x, const void* w, void* out, int B, int H,
+                      int W, int C, int K, int FX, int FY, int bx, int by,
+                      int bc, int bk, int fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fp32)
+    return launch<float>(x, w, out, B, H, W, C, K, FX, FY, bx, by, bc, bk, s);
+  return launch<bf16>(x, w, out, B, H, W, C, K, FX, FY, bx, by, bc, bk, s);
 }

@@ -25,29 +25,41 @@
 // It under-fills the card at small batch (B*KV blocks: 40 on 132 SMs at
 // B=8 for smollm-360m, 8 for recurrentgemma-2b's single KV head); splitting
 // KV across blocks with a fixed-order combine is later work.
-// Head sizes 64, 128 and 256, groups of up to kMaxG = 16 query heads.  The
-// query and accumulator rows (2*G*D fp32, 32 KB at G = 16, D = 256) are
-// static shared memory; the K/V tile is dynamic and above 48 KB (D = 256
-// with bk = 64 takes 66 KB) the launch opts in to the larger carve-out.
+//
+// Sizes and types: every head size D that is a multiple of 8 up to 256 (D
+// is a run-time argument: 16 for the -smoke configs, 64, 128, 240 for
+// gemma3-12b, 256), groups of up to kMaxG = 16 query heads, and q/K/V all
+// bf16 or all fp32 (a template parameter).  Everything the block stages
+// is dynamic shared memory: the query and accumulator rows (2*G*D fp32),
+// the split's scores (G*bk fp32) and its K and V tiles (bk rows of D).
+// Above 48 KB (D = 256 with bk = 64 takes 103 KB in bf16, 169 KB in fp32)
+// the launch opts in to the larger carve-out; the wrapper refuses what
+// would pass the 227 KB a block may have.
 //
 // Semantics copied exactly from the reference: lengths clamped to
 // [1, max_len] (a length of 0 attends one key); masked scores are -1e30,
-// not -inf; p is rounded to bf16 (V's type) before the P.V product; the
-// final divide is by max(l, 1e-30); the paged window keeps k_idx >
+// not -inf; p is rounded to V's type before the P.V product; the final
+// divide is by max(l, 1e-30); the paged window keeps k_idx >
 // len - 1 - window.
 //
-// Bitwise equal to the plain PyTorch version (decode_attention.py), so
-// that the ABFT fingerprint (kernels/abft.py), which recomputes sampled
-// rows on the plain version and compares within 1e-5 of the output's
-// scale, never flags a clean step.  Summation order cannot be matched
-// between this loop and PyTorch's reductions, so every sum is made
-// independent of its order instead: the q.k and p.V dot products and the
-// split's sum of p accumulate in fp64, where the products of bf16 values
-// (16 significant bits) and the few terms add exactly, and round once to
-// fp32; exp runs in fp64 and rounds once; the running rescales are
-// explicit round-to-nearest fp32 multiplies and adds (no FMA contraction),
-// as PyTorch's separate elementwise operations are.  The plain version
-// does the same operations, so both round the same exact values.
+// In bf16 it is bitwise equal to the plain PyTorch version
+// (decode_attention.py), so that the ABFT fingerprint (kernels/abft.py),
+// which recomputes sampled rows on the plain version and compares within
+// 1e-5 of the output's scale, never flags a clean step.  Summation order
+// cannot be matched between this loop and PyTorch's reductions, so every
+// sum is made independent of its order instead: the q.k and p.V dot
+// products and the split's sum of p accumulate in fp64, where the products
+// of bf16 values (16 significant bits) and the few terms add exactly, and
+// round once to fp32; exp runs in fp64 and rounds once; the running
+// rescales are explicit round-to-nearest fp32 multiplies and adds (no FMA
+// contraction), as PyTorch's separate elementwise operations are.  The
+// plain version does the same operations, so both round the same exact
+// values.  In fp32 the products (48 significant bits) are still exact in
+// fp64 but a sum of up to 256 of them is not: the kernel and the plain
+// version round fp64 sums taken in other orders (relative error near
+// 1e-16), so an fp32 score or output may differ by an ulp.  Kernel and
+// plain version then agree within 1e-6 of the output's scale, well inside
+// the 1e-5 the ABFT fingerprint allows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +71,17 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;
+constexpr int kMaxD = 256;
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+// p rounded to V's type before the P.V product (a no-op in fp32)
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 struct ContigRows {
   int S, bk;
@@ -75,31 +98,36 @@ struct PagedRows {
   }
 };
 
-template <int D>
-__host__ __device__ constexpr int key_stride() { return D + 8; }  // spreads banks
+// K rows are padded by 16 bytes to spread shared-memory banks
+template <typename T>
+__host__ __device__ constexpr int key_pad() { return 16 / sizeof(T); }
 
-template <int D>
-size_t smem_bytes(int G, int bk) {
-  return (size_t)bk * key_stride<D>() * 2 + (size_t)bk * D * 2 + (size_t)G * bk * 4;
+// bytes of dynamic shared memory: the K and V tiles in T (rows of 16-byte
+// multiples, so every 16-byte store is aligned), then m/l/corr (3 kMaxG),
+// the q and acc rows (2 G D) and the scores (G bk) in fp32
+template <typename T>
+size_t smem_bytes(int G, int D, int bk) {
+  return (size_t)(3 * kMaxG + 2 * G * D + G * bk) * 4 +
+         (size_t)bk * (2 * D + key_pad<T>()) * sizeof(T);
 }
 
-template <int D, class Rows>
+template <typename T, class Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const int* __restrict__ lengths,
-              __nv_bfloat16* __restrict__ out,
-              Rows rows, int KV, int G, int bk, int max_len, int window,
-              float scale) {
-  constexpr int KS = key_stride<D>();
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ lengths,
+              T* __restrict__ out, Rows rows, int KV, int G, int D, int bk,
+              int max_len, int window, float scale) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  const int KS = D + key_pad<T>();
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // (bk, KS)
-  __nv_bfloat16* vs = ks + bk * KS;                             // (bk, D)
-  float* ps = reinterpret_cast<float*>(vs + bk * D);            // (G, bk)
-  __shared__ float qs[kMaxG * D];
-  __shared__ float acc[kMaxG * D];
-  __shared__ float m_run[kMaxG], l_run[kMaxG], corr[kMaxG];
+  T* ks = reinterpret_cast<T*>(smem);                 // (bk, KS)
+  T* vs = ks + bk * KS;                               // (bk, D)
+  float* m_run = reinterpret_cast<float*>(vs + bk * D);  // (kMaxG,)
+  float* l_run = m_run + kMaxG;                       // (kMaxG,)
+  float* corr = l_run + kMaxG;                        // (kMaxG,)
+  float* qs = corr + kMaxG;                           // (G, D)
+  float* acc = qs + G * D;                            // (G, D)
+  float* ps = acc + G * D;                            // (G, bk)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / KV, h = blockIdx.x % KV;
@@ -107,7 +135,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   const long long qbase = ((long long)b * KV + h) * G * D;
 
   for (int i = tid; i < G * D; i += kThreads) {
-    qs[i] = __bfloat162float(q[qbase + i]);
+    qs[i] = to_f32(q[qbase + i]);
     acc[i] = 0.f;
   }
   if (tid < G) {
@@ -116,12 +144,12 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  constexpr int CH = D / 8;  // 16-byte chunks per key row
+  const int CH = D / VEC;  // 16-byte chunks per key row
   const int n_live = (len + bk - 1) / bk;
   for (int j = 0; j < n_live; ++j) {
     const long long r0 = rows(b, j);
     for (int c = tid; c < bk * CH; c += kThreads) {
-      const int t = c / CH, dc = (c % CH) * 8;
+      const int t = c / CH, dc = (c % CH) * VEC;
       const long long off = ((r0 + t) * KV + h) * D + dc;
       *reinterpret_cast<uint4*>(ks + t * KS + dc) =
           *reinterpret_cast<const uint4*>(k + off);
@@ -133,10 +161,14 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     // scores s[g, t] = fp32(q_g . k_t) * scale, masked to -1e30
     for (int i = tid; i < G * bk; i += kThreads) {
       const int g = i / bk, t = i % bk;
+      const float* qg = qs + g * D;
+      const T* kt = ks + t * KS;
       double dot = 0.0;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d)
-        dot += (double)qs[g * D + d] * (double)__bfloat162float(ks[t * KS + d]);
+      for (int d0 = 0; d0 < D; d0 += 8) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dot += (double)qg[d0 + e] * (double)to_f32(kt[d0 + e]);
+      }
       const float s = __fmul_rn((float)dot, scale);
       const int kidx = j * bk + t;
       bool live = kidx < len;
@@ -169,82 +201,78 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // acc[g, :] = acc * corr + fp32(bf16(p[g, :]) . V)
+    // acc[g, :] = acc * corr + fp32(round_to_T(p[g, :]) . V)
     for (int i = tid; i < G * D; i += kThreads) {
       const int g = i / D, d = i % D;
       double pv = 0.0;
       for (int t = 0; t < bk; ++t)
-        pv += (double)__bfloat162float(__float2bfloat16(ps[g * bk + t])) *
-              (double)__bfloat162float(vs[t * D + d]);
+        pv += (double)round_to(ps[g * bk + t], vs) * (double)to_f32(vs[t * D + d]);
       acc[i] = __fadd_rn(__fmul_rn(acc[i], corr[g]), (float)pv);
     }
     __syncthreads();
   }
 
   for (int i = tid; i < G * D; i += kThreads)
-    out[qbase + i] = __float2bfloat16(__fdiv_rn(acc[i], fmaxf(l_run[i / D], 1e-30f)));
+    store(out + qbase + i, __fdiv_rn(acc[i], fmaxf(l_run[i / D], 1e-30f)));
 }
 
-template <int D, class Rows>
+template <typename T, class Rows>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* out, Rows rows, int B, int KV,
-                   int G, int bk, int max_len, int window, float scale,
+                   int G, int D, int bk, int max_len, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(G, bk);
-  auto kern = decode_kernel<D, Rows>;
+  if (B < 1 || KV < 1 || G < 1 || G > kMaxG || bk < 1 || D < 8 || D > kMaxD ||
+      D % 8)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(G, D, bk);
+  auto kern = decode_kernel<T, Rows>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   kern<<<B * KV, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), rows, KV, G, bk, max_len, window, scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(lengths), static_cast<T*>(out), rows, KV, G, D, bk,
+      max_len, window, scale);
   return cudaGetLastError();
 }
 
 template <class Rows>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+cudaError_t dispatch(int fp32, const void* q, const void* k, const void* v,
                      const void* lengths, void* out, Rows rows, int B, int KV,
-                     int G, int bk, int max_len, int window, float scale,
+                     int G, int D, int bk, int max_len, int window, float scale,
                      cudaStream_t stream) {
-  if (B < 1 || KV < 1 || G < 1 || G > kMaxG || bk < 1) return cudaErrorInvalidValue;
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, lengths, out, rows, B, KV, G, bk, max_len,
-                        window, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, lengths, out, rows, B, KV, G, bk, max_len,
+  if (fp32)
+    return launch<float>(q, k, v, lengths, out, rows, B, KV, G, D, bk, max_len,
                          window, scale, stream);
-    case 256:
-      return launch<256>(q, k, v, lengths, out, rows, B, KV, G, bk, max_len,
-                         window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch<__nv_bfloat16>(q, k, v, lengths, out, rows, B, KV, G, D, bk,
+                               max_len, window, scale, stream);
 }
 
 }  // namespace
 
-// q (B, KV, G, D), k/v (B, S, KV, D) bf16, lengths (B,) int32 -> out (B, KV, G, D)
+// q (B, KV, G, D), k/v (B, S, KV, D), all bf16 (fp32 = 0) or all fp32
+// (fp32 = 1), lengths (B,) int32 -> out (B, KV, G, D) in q's type
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const void* lengths, void* out, int B, int S,
-                            int KV, int G, int D, int bk, float scale,
+                            int KV, int G, int D, int bk, int fp32, float scale,
                             void* stream) {
   if (bk < 1 || S % bk) return cudaErrorInvalidValue;
-  return dispatch(D, q, k, v, lengths, out, ContigRows{S, bk}, B, KV, G, bk, S,
-                  -1, scale, static_cast<cudaStream_t>(stream));
+  return dispatch(fp32, q, k, v, lengths, out, ContigRows{S, bk}, B, KV, G, D,
+                  bk, S, -1, scale, static_cast<cudaStream_t>(stream));
 }
 
-// q (B, KV, G, D), pools (num_blocks, bs, KV, D) bf16, tables (B, n_blk) and
-// lengths (B,) int32 -> out (B, KV, G, D); window < 0 means none
+// q (B, KV, G, D), pools (num_blocks, bs, KV, D) of q's type, tables
+// (B, n_blk) and lengths (B,) int32 -> out (B, KV, G, D); window < 0 means
+// none
 extern "C" int flash_decode_paged(const void* q, const void* kpool,
                                   const void* vpool, const void* tables,
                                   const void* lengths, void* out, int B,
                                   int n_blk, int bs, int KV, int G, int D,
-                                  int window, float scale, void* stream) {
+                                  int window, int fp32, float scale,
+                                  void* stream) {
   PagedRows rows{static_cast<const int*>(tables), n_blk, bs};
-  return dispatch(D, q, kpool, vpool, lengths, out, rows, B, KV, G, bs,
+  return dispatch(fp32, q, kpool, vpool, lengths, out, rows, B, KV, G, D, bs,
                   n_blk * bs, window, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
-// Tiled bf16 GEMM for Hopper (sm_90a): C = A @ B or A @ B^T, fp32
-// accumulation, bf16 store.
+// Tiled GEMM for Hopper (sm_90a): C = A @ B or A @ B^T, fp32
+// accumulation, stored in the operands' type (bf16 or fp32).
 //
 // Replaces the TPU kernel matmul_pallas (repro/kernels/matmul/matmul.py):
 // a blocked (M, K) @ (K, N) with K innermost and an fp32 accumulator cast
@@ -23,20 +23,33 @@
 // Fixed tiles, no TMA/wgmma pipeline and one block per 64 output columns
 // leave a skinny GEMM well short of HBM bandwidth; that is later work.
 //
-// gemm_bf16_abft replaces matmul_pallas_abft (the same file of the
+// gemm_abft replaces matmul_pallas_abft (the same file of the
 // reference): the same product, plus the Huang-Abraham column checksums
 // e^T.C of every row block, summed from the fp32 accumulator before the
 // bf16 cast and returned as a (ceil(M/BM), N) fp32 array.  It is this
 // kernel with a checksum epilogue: the same tiles and the same K order, so
-// its C is bitwise gemm_bf16's.  The row block is the kernel's own BM (16
+// its C is bitwise gemm's.  The row block is the kernel's own BM (16
 // for M <= 16, else 64).  One thread per output column sums the block's
 // valid rows in row order (no atomics), so the checksums repeat bit for bit;
 // rows and columns past the matrix add nothing.  The epilogue reads the
 // fp32 tile already staged in shared memory for the store, so it adds no
 // device-memory traffic beyond the (M/BM, N) checksums: the kernel stays
-// bound by the weight bytes, like gemm_bf16.  The verdict that compares the
+// bound by the weight bytes, like gemm.  The verdict that compares the
 // checksums with (e^T.A).B is a plain product outside the kernel, as in the
 // reference (kernels/matmul/ops.py).
+//
+// fp32 operands take a second kernel body, gemm_f32_kernel, on the CUDA
+// cores in full fp32 (no TF32: the tensor cores would round the operands
+// to 10 mantissa bits), as the reference's fp32 matmul_pallas keeps fp32.
+// Its tiles are the bf16 kernel's (BM = 16 rows for M <= 16, else 64; BN =
+// 64 columns), staged 16 deep in K in shared memory; each of 256 threads
+// owns a (BM/16) x 4 patch of C and adds k = 0, 1, ... K-1 into each
+// output with one fused multiply-add per step.  That sequence does not
+// depend on M or on the tile, so a row's bits do not depend on M, as in
+// the bf16 kernel; the checksum epilogue is the bf16 kernel's, on the
+// fp32 tile, so the checksum variant's C is bitwise gemm's here too.
+// Bound: fp32 on the CUDA cores (66.9 TFLOP/s) at large M, the weight
+// bytes at decode M; this simple body is far from both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,10 +188,114 @@ cudaError_t launch(const bf16* A, const bf16* B, bf16* C, float* checks, int M,
   return cudaGetLastError();
 }
 
+// fp32 on the CUDA cores: a BM x 64 tile of C per block of 256 threads,
+// thread (ty, tx) owning rows ty * TM .. + TM - 1 and columns 4 tx .. + 3
+template <int BM, bool TRANS_B, bool ABFT>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                float* __restrict__ C, float* __restrict__ checks, int M, int N,
+                int K) {
+  constexpr int BN = 64, BKF = 16, THREADS = 256, TM = BM / 16;
+  __shared__ float As[BKF][BM + 4];  // As[k][m]
+  __shared__ float Bs[BKF][BN + 4];  // Bs[k][n]
+  __shared__ float Cs[ABFT ? BM : 1][BN + 4];
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BKF) {
+    for (int idx = tid; idx < BM * BKF; idx += THREADS) {
+      const int r = idx / BKF, c = idx % BKF;  // neighbouring threads: neighbouring k
+      const int gr = m0 + r, gc = k0 + c;
+      As[c][r] = (gr < M && gc < K) ? A[(long long)gr * K + gc] : 0.f;
+    }
+    for (int idx = tid; idx < BKF * BN; idx += THREADS) {
+      int r, c;  // tile row k0 + r, tile column n0 + c
+      if (TRANS_B) {
+        c = idx / BKF;
+        r = idx % BKF;
+      } else {
+        r = idx / BN;
+        c = idx % BN;
+      }
+      const int gk = k0 + r, gn = n0 + c;
+      float val = 0.f;
+      if (gk < K && gn < N)
+        val = TRANS_B ? B[(long long)gn * K + gk] : B[(long long)gk * N + gn];
+      Bs[r][c] = val;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BKF; ++kk) {
+      float a[TM], b[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty * TM + i, gr = m0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx * 4 + j, gc = n0 + c;
+      if (ABFT) Cs[r][c] = acc[i][j];
+      if (gr < M && gc < N) C[(long long)gr * N + gc] = acc[i][j];
+    }
+  }
+  if (ABFT) {
+    __syncthreads();
+    if (tid < BN) {
+      const int c = tid, gc = n0 + c;
+      if (gc < N) {
+        const int rows = min(BM, M - m0);
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s += Cs[r][c];
+        checks[(long long)blockIdx.y * N + gc] = s;
+      }
+    }
+  }
+}
+
+template <int BM, bool ABFT>
+cudaError_t launch_f32(const float* A, const float* B, float* C, float* checks,
+                       int M, int N, int K, bool trans_b, cudaStream_t stream) {
+  const dim3 grid((N + 63) / 64, (M + BM - 1) / BM);
+  if (trans_b)
+    gemm_f32_kernel<BM, true, ABFT><<<grid, 256, 0, stream>>>(A, B, C, checks, M, N, K);
+  else
+    gemm_f32_kernel<BM, false, ABFT><<<grid, 256, 0, stream>>>(A, B, C, checks, M, N, K);
+  return cudaGetLastError();
+}
+
 template <bool ABFT>
-int gemm(const void* a, const void* b, void* c, float* checks, int M, int N,
-         int K, int trans_b, void* stream) {
+int gemm_f32(const void* a, const void* b, void* c, float* checks, int M, int N,
+             int K, int trans_b, void* stream) {
+  const float* A = static_cast<const float*>(a);
+  const float* B = static_cast<const float*>(b);
+  float* Cp = static_cast<float*>(c);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 16) return launch_f32<16, ABFT>(A, B, Cp, checks, M, N, K, trans_b != 0, s);
+  return launch_f32<64, ABFT>(A, B, Cp, checks, M, N, K, trans_b != 0, s);
+}
+
+template <bool ABFT>
+int run_gemm(const void* a, const void* b, void* c, float* checks, int M, int N,
+             int K, int trans_b, int fp32, void* stream) {
   if (M < 1 || N < 1 || K < 0) return cudaErrorInvalidValue;
+  if (fp32) return gemm_f32<ABFT>(a, b, c, checks, M, N, K, trans_b, stream);
   const bf16* A = static_cast<const bf16*>(a);
   const bf16* B = static_cast<const bf16*>(b);
   const bool vec_a = K % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
@@ -194,15 +311,17 @@ int gemm(const void* a, const void* b, void* c, float* checks, int M, int N,
 
 }  // namespace
 
-// A (M, K), B (K, N) or (N, K) when trans_b, C (M, N); all bf16 row-major
-extern "C" int gemm_bf16(const void* a, const void* b, void* c, int M, int N,
-                         int K, int trans_b, void* stream) {
-  return gemm<false>(a, b, c, nullptr, M, N, K, trans_b, stream);
+// A (M, K), B (K, N) or (N, K) when trans_b, C (M, N); all bf16 (fp32 = 0)
+// or all fp32 (fp32 = 1), row-major
+extern "C" int gemm(const void* a, const void* b, void* c, int M, int N, int K,
+                    int trans_b, int fp32, void* stream) {
+  return run_gemm<false>(a, b, c, nullptr, M, N, K, trans_b, fp32, stream);
 }
 
-// gemm_bf16 plus checks (ceil(M / BM), N) fp32 row-major, BM = 16 for
-// M <= 16, else 64: checks[i, j] = sum of the fp32 C[i*BM : (i+1)*BM, j]
-extern "C" int gemm_bf16_abft(const void* a, const void* b, void* c, void* checks,
-                              int M, int N, int K, int trans_b, void* stream) {
-  return gemm<true>(a, b, c, static_cast<float*>(checks), M, N, K, trans_b, stream);
+// gemm plus checks (ceil(M / BM), N) fp32 row-major, BM = 16 for M <= 16,
+// else 64: checks[i, j] = sum of the fp32 C[i*BM : (i+1)*BM, j]
+extern "C" int gemm_abft(const void* a, const void* b, void* c, void* checks,
+                         int M, int N, int K, int trans_b, int fp32, void* stream) {
+  return run_gemm<true>(a, b, c, static_cast<float*>(checks), M, N, K, trans_b, fp32,
+                        stream);
 }

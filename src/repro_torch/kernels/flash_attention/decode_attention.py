@@ -22,12 +22,17 @@ Masking contract: row b's live keys are indices ``[0, lengths[b])`` with
 lengths clamped to ``[1, S]`` (length 0 attends one key); masks use
 ``NEG_INF = -1e30``; ``p`` is rounded to V's dtype before the P.V product.
 
-Kernel and plain version are bitwise equal on the card, which the ABFT
+The kernels take q, K and V all bf16 or all fp32, every head_dim that is
+a multiple of 8 up to 256 and groups of up to 16 query heads.  In bf16,
+kernel and plain version are bitwise equal on the card, which the ABFT
 attention fingerprint (``kernels/abft.py``) relies on.  Their reduction
 orders cannot match, so neither depends on one: the q.k and p.V dot
 products and each split's sum of p accumulate in fp64, where products of
 bf16 values add exactly, and round once to fp32; exp runs in fp64 and
-rounds once; every other step is one round-to-nearest fp32 operation.
+rounds once; every other step is one round-to-nearest fp32 operation.  In
+fp32 the fp64 sums of fp32 products are not exact, so the two round sums
+taken in other orders: they agree within :data:`FP32_TOL` of the output's
+scale, inside the 1e-5 the fingerprint allows.
 
 Each wrapper runs the plain version only when its tensors lie on the CPU.
 A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -40,18 +45,31 @@ import math
 
 import torch
 
+from repro_torch import hw
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGS = {
-    "flash_decode": [_P] * 5 + [_I] * 6 + [_F, _P],
-    "flash_decode_paged": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "flash_decode": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "flash_decode_paged": [_P] * 6 + [_I] * 8 + [_F, _P],
 }
-HEAD_DIMS = (64, 128, 256)
+MAX_HEAD_DIM = 256  # head_dim: a multiple of 8 up to this
 MAX_G = 16
 MAX_BK = 256
+DTYPES = (torch.bfloat16, torch.float32)
+# kernel vs plain version in fp32, of the output's largest magnitude: fp64
+# sums of fp32 products in two orders, each rounded once to fp32
+FP32_TOL = 1e-6
+
+
+def smem_bytes(G: int, d: int, bk: int, itemsize: int) -> int:
+    """Dynamic shared memory one block of the kernel asks for: the K and V
+    tiles (K rows padded by 16 bytes), then the running max, normaliser and
+    rescale of up to 16 heads, the q and accumulator rows and the split's
+    scores in fp32 (``smem_bytes`` in ``csrc/decode_attention.cu``)."""
+    return (3 * MAX_G + 2 * G * d + G * bk) * 4 + bk * (2 * d * itemsize + 16)
 
 
 # ------------------------------------------------------------ plain versions
@@ -152,29 +170,41 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(q: torch.Tensor, pairs: dict) -> None:
+def _check_cuda(q: torch.Tensor, pairs: dict, bk: int) -> None:
+    """Raise on what the kernel does not take; ``pairs`` maps each operand's
+    name to (tensor, dtype), None standing for q's dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention needs CPU or CUDA tensors, got {q.device}")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q is on {q.device}, not the current CUDA device")
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, KV, G, d): {tuple(q.shape)}")
     B, KV, G, d = q.shape
-    if d not in HEAD_DIMS or not 1 <= G <= MAX_G:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS} and G <= {MAX_G}: {q.shape}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM or not 1 <= G <= MAX_G:
+        raise ValueError(f"kernel takes head_dim a multiple of 8 up to {MAX_HEAD_DIM} "
+                         f"and G <= {MAX_G}: {tuple(q.shape)}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"kernel takes bf16 or fp32 q, K and V, got {q.dtype}")
     for name, (t, dtype) in pairs.items():
+        dtype = dtype or q.dtype
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+            raise ValueError(f"{name} must be {dtype} (q's type for K and V), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if dtype in DTYPES and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+    smem = smem_bytes(G, d, bk, q.element_size())
+    if smem > hw.SMEM_PER_BLOCK_BYTES:
+        raise ValueError(f"G={G}, head_dim={d}, split {bk} in {q.dtype} need {smem} B of "
+                         f"shared memory, past the {hw.SMEM_PER_BLOCK_BYTES} B a block may have")
 
 
 def flash_decode_cuda(
-    q: torch.Tensor,        # (B, KV, G, d) bf16
-    k: torch.Tensor,        # (B, S, KV, d) bf16
-    v: torch.Tensor,        # (B, S, KV, d) bf16
+    q: torch.Tensor,        # (B, KV, G, d) bf16 or fp32
+    k: torch.Tensor,        # (B, S, KV, d) q's dtype
+    v: torch.Tensor,        # (B, S, KV, d) q's dtype
     lengths: torch.Tensor,  # (B,) int32
     *,
     bk: int = 128,
@@ -183,21 +213,21 @@ def flash_decode_cuda(
     kernel ``flash_decode_pallas``.  CPU tensors take the plain version."""
     if _on_cpu(q, k, v, lengths):
         return decode_attention_plain(q, k, v, lengths, bk=bk)
-    bf = torch.bfloat16
-    _check_cuda(q, {"q": (q, bf), "k": (k, bf), "v": (v, bf), "lengths": (lengths, torch.int32)})
     B, KV, G, d = q.shape
     S = k.shape[1]
     if k.shape != (B, S, KV, d) or v.shape != k.shape or lengths.shape != (B,):
         raise ValueError(f"shapes q {q.shape} k {k.shape} v {v.shape} lengths {lengths.shape}")
     if not 1 <= bk <= MAX_BK or S % bk:
         raise ValueError(f"bk={bk} must divide S={S} and be <= {MAX_BK}")
+    _check_cuda(q, {"q": (q, None), "k": (k, None), "v": (v, None),
+                    "lengths": (lengths, torch.int32)}, bk)
     out = torch.empty_like(q)
     if B == 0:
         return out
     lib = _build.library("decode_attention", _SIGS)
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, S, KV, G, d, bk, 1.0 / math.sqrt(d),
+        B, S, KV, G, d, bk, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
         torch.cuda.current_stream().cuda_stream,
     )
     _build.check(err, "flash_decode")
@@ -209,9 +239,9 @@ flash_decode_cuda.launches = 0
 
 
 def flash_decode_paged_cuda(
-    q: torch.Tensor,        # (B, KV, G, d) bf16
-    kpool: torch.Tensor,    # (num_blocks, bs, KV, d) bf16
-    vpool: torch.Tensor,    # (num_blocks, bs, KV, d) bf16
+    q: torch.Tensor,        # (B, KV, G, d) bf16 or fp32
+    kpool: torch.Tensor,    # (num_blocks, bs, KV, d) q's dtype
+    vpool: torch.Tensor,    # (num_blocks, bs, KV, d) q's dtype
     tables: torch.Tensor,   # (B, n_blk) int32
     lengths: torch.Tensor,  # (B,) int32
     *,
@@ -221,11 +251,6 @@ def flash_decode_paged_cuda(
     ``flash_decode_paged_pallas``.  CPU tensors take the plain version."""
     if _on_cpu(q, kpool, vpool, tables, lengths):
         return decode_attention_paged_plain(q, kpool, vpool, tables, lengths, window=window)
-    bf, i32 = torch.bfloat16, torch.int32
-    _check_cuda(q, {
-        "q": (q, bf), "kpool": (kpool, bf), "vpool": (vpool, bf),
-        "tables": (tables, i32), "lengths": (lengths, i32),
-    })
     B, KV, G, d = q.shape
     nb, bs = kpool.shape[:2]
     n_blk = tables.shape[1] if tables.ndim == 2 else -1
@@ -237,6 +262,11 @@ def flash_decode_paged_cuda(
         )
     if not 1 <= bs <= MAX_BK:
         raise ValueError(f"block size {bs} must be <= {MAX_BK}")
+    i32 = torch.int32
+    _check_cuda(q, {
+        "q": (q, None), "kpool": (kpool, None), "vpool": (vpool, None),
+        "tables": (tables, i32), "lengths": (lengths, i32),
+    }, bs)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0: {window}")
     out = torch.empty_like(q)
@@ -247,7 +277,8 @@ def flash_decode_paged_cuda(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
         B, n_blk, bs, KV, G, d, -1 if window is None else window,
-        1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream,
+        int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream().cuda_stream,
     )
     _build.check(err, "flash_decode_paged")
     flash_decode_paged_cuda.launches += 1

@@ -1,5 +1,5 @@
-"""Dense-softmax oracles for ragged decode attention; port of
-``repro/kernels/flash_attention/ref.py`` (l.39-86)."""
+"""Dense-softmax oracles for flash and ragged decode attention; port of
+``repro/kernels/flash_attention/ref.py``."""
 
 from __future__ import annotations
 
@@ -8,6 +8,34 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def flash_attention_ref(
+    q: torch.Tensor,        # (BH, Tq, d)
+    k: torch.Tensor,        # (BH, Tk, d)
+    v: torch.Tensor,        # (BH, Tk, d)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+) -> torch.Tensor:
+    """Dense fp32 softmax over flattened heads (K/V already one row per
+    query head), masked as the flash kernels mask."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    q_pos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    ok = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= q_pos >= k_pos
+    if window is not None:
+        ok &= (q_pos - k_pos) < window
+    if kv_len is not None:
+        ok &= k_pos < kv_len
+    s = torch.where(ok[None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def _masked_softmax_pv(q, k, v, live):

@@ -1,19 +1,21 @@
-"""Tiled bf16 GEMM: the CUDA kernel wrappers and their plain versions.
+"""Tiled GEMM: the CUDA kernel wrappers and their plain versions.
 
 :func:`matmul_cuda` replaces the TPU kernel ``matmul_pallas``
 (``repro/kernels/matmul/matmul.py``) with ``kernels/csrc/matmul.cu``: fp32
-accumulation, bf16 store, ragged edges masked inside the kernel (no
-padding copies), and B taken as ``(K, N)`` or, with ``trans_b``, as
-``(N, K)`` so the tied unembedding reads the embedding table in place.
-Tiles are fixed Hopper-sized constants (16x64 for M <= 16, else 64x64,
-K steps of 32).
+accumulation, stored in the operands' type, ragged edges masked inside
+the kernel (no padding copies), and B taken as ``(K, N)`` or, with
+``trans_b``, as ``(N, K)`` so the tied unembedding reads the embedding
+table in place.  bf16 operands run on the tensor cores; fp32 operands on
+the CUDA cores in full fp32 (no TF32), each output summed over k in
+order, so a row's bits do not depend on M in either type.  Tiles are
+fixed Hopper-sized constants (16x64 for M <= 16, else 64x64).
 
 :func:`matmul_plain` is its plain version: the fp32 product cast to the
 input dtype (the reference's ``matmul_ref``).  The wrapper runs it only
 for CPU tensors; a CUDA tensor launches the kernel or raises.
 
 :func:`matmul_abft_cuda` replaces ``matmul_pallas_abft`` with the same
-kernel plus a checksum epilogue (``gemm_bf16_abft``): it also returns the
+kernel plus a checksum epilogue (``gemm_abft``): it also returns the
 column sums ``e^T·C`` of every row block of :func:`abft_block_rows` rows,
 summed from the fp32 accumulator before the cast, as a
 ``(ceil(M/bm), N)`` fp32 tensor.  Its product is bitwise
@@ -31,9 +33,10 @@ from repro_torch.kernels.matmul.ref import matmul_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGS = {
-    "gemm_bf16": [_P] * 3 + [_I] * 4 + [_P],
-    "gemm_bf16_abft": [_P] * 4 + [_I] * 4 + [_P],
+    "gemm": [_P] * 3 + [_I] * 5 + [_P],
+    "gemm_abft": [_P] * 4 + [_I] * 5 + [_P],
 }
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def abft_block_rows(M: int) -> int:
@@ -66,8 +69,8 @@ def _check_operands(a: torch.Tensor, b: torch.Tensor, trans_b: bool) -> tuple[in
         raise ValueError(f"matmul needs both operands on one CUDA device: {a.device}, {b.device}")
     if a.device.index != torch.cuda.current_device():
         raise ValueError(f"operands are on {a.device}, not the current CUDA device")
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise ValueError(f"kernel takes bf16 operands, got {a.dtype}, {b.dtype}")
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise ValueError(f"kernel takes two bf16 or two fp32 operands, got {a.dtype}, {b.dtype}")
     if a.ndim != 2 or b.ndim != 2 or not a.is_contiguous() or not b.is_contiguous():
         raise ValueError(f"kernel takes contiguous 2-D operands: {a.shape}, {b.shape}")
     M, K = a.shape
@@ -82,15 +85,15 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, trans_b: bool = False) -> t
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_plain(a, b, trans_b=trans_b)
     M, N, K = _check_operands(a, b, trans_b)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return out
     lib = _build.library("matmul", _SIGS)
-    err = lib.gemm_bf16(
+    err = lib.gemm(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(trans_b),
-        torch.cuda.current_stream().cuda_stream,
+        int(a.dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
     )
-    _build.check(err, "gemm_bf16")
+    _build.check(err, "gemm")
     matmul_cuda.launches += 1
     return out
 
@@ -106,18 +109,18 @@ def matmul_abft_cuda(
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_abft_plain(a, b, trans_b=trans_b)
     M, N, K = _check_operands(a, b, trans_b)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     checks = torch.empty(
         (-(-M // abft_block_rows(M)), N), dtype=torch.float32, device=a.device
     )
     if M == 0 or N == 0:
         return out, checks
     lib = _build.library("matmul", _SIGS)
-    err = lib.gemm_bf16_abft(
+    err = lib.gemm_abft(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), checks.data_ptr(), M, N, K,
-        int(trans_b), torch.cuda.current_stream().cuda_stream,
+        int(trans_b), int(a.dtype == torch.float32), torch.cuda.current_stream().cuda_stream,
     )
-    _build.check(err, "gemm_bf16_abft")
+    _build.check(err, "gemm_abft")
     matmul_abft_cuda.launches += 1
     return out, checks
 

@@ -25,9 +25,22 @@ is one rounded fp32 multiply and one rounded add in both, no FMA
 contraction.  Decode attention at recurrentgemma-2b's head_dim 256 and 10
 query heads per KV head is held bitwise too, on a ring whose rows are
 wrapped (every slot live), paged == contiguous at ``bk == block_size``.
-"""
 
-import dataclasses
+The kernels take every dtype and size their Pallas kernels take: decode
+attention every head_dim that is a multiple of 8 up to 256 and fp32 as
+well as bf16 (fp32 within ``FP32_TOL`` = 1e-6 of the output's scale of its
+plain version: fp64 sums of fp32 products rounded in two orders; paged ==
+contiguous still bitwise), the GEMMs and conv2d fp32 (full fp32 on the
+CUDA cores: the GEMM within 1e-5 of the output's scale, conv2d within 1e-5
+of the element plus 1e-5 of the scale; the checksum GEMM's product bitwise
+the GEMM's, rows independent of M), WKV-6 key and value head sizes of 16,
+32 and 64 apart.  The parameter grids of the reference's
+``tests/test_kernels.py`` and of ``tests/test_torch_decode_attention.py``
+go through the port's ``ops`` on CUDA tensors.  The flash-attention kernel
+is held to its plain version within 1e-5 of the output's scale in fp32 and
+1e-2 in bf16 (p rounded to bf16 in both, at scores from sums in other
+orders), its repeat runs bitwise.
+"""
 
 import numpy as np
 import pytest
@@ -41,6 +54,9 @@ from repro_torch.kernels import abft
 from repro_torch.kernels.conv2d import conv2d as cv
 from repro_torch.kernels.conv2d import ops as convops
 from repro_torch.kernels.flash_attention import decode_attention as dec
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.kernels.linear_scan.linear_scan import (
     linear_scan_cuda,
     linear_scan_plain,
@@ -96,15 +112,86 @@ def test_decode_kernels_match_plain_and_agree_bitwise(cuda, G, d):
 
 @pytest.mark.cuda
 def test_decode_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    """The limits: q, K and V of one type, bf16 or fp32; head_dim a multiple
+    of 8 up to 256; G up to 16; shared memory within 227 KB a block."""
     q = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16, device=cuda)
     k = torch.zeros((1, 16, 1, 64), dtype=torch.bfloat16, device=cuda)
     lens = torch.ones((1,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # q's type differs from K's
         dec.flash_decode_cuda(q.float(), k, k, lens, bk=16)
     with pytest.raises(ValueError):
-        dec.flash_decode_cuda(q, k, k, lens, bk=5)
+        dec.flash_decode_cuda(q.double(), k.double(), k.double(), lens, bk=16)
     with pytest.raises(ValueError):
-        dec.flash_decode_cuda(q[..., :32], k[..., :32], k[..., :32], lens, bk=16)
+        dec.flash_decode_cuda(q, k, k, lens, bk=5)
+    with pytest.raises(ValueError):  # not a multiple of 8
+        dec.flash_decode_cuda(q[..., :12], k[..., :12], k[..., :12], lens, bk=16)
+    wide = torch.zeros((1, 16, 1, 264), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # past 256
+        dec.flash_decode_cuda(wide[:, :1], wide, wide, lens, bk=16)
+    with pytest.raises(ValueError):  # G past 16
+        dec.flash_decode_cuda(torch.zeros((1, 1, 17, 64), dtype=torch.bfloat16, device=cuda),
+                              k, k, lens, bk=16)
+    big = torch.zeros((1, 256, 1, 256), device=cuda)
+    with pytest.raises(ValueError):  # fp32, d 256, G 16, split 256: past 227 KB
+        dec.flash_decode_cuda(torch.zeros((1, 1, 16, 256), device=cuda), big, big, lens,
+                              bk=256)
+    # what the reference takes runs: head_dim 32, fp32; int32 lengths need
+    # no 16-byte alignment (a row of a stacked per-layer tensor)
+    lens_view = torch.ones((2,), dtype=torch.int32, device=cuda)[1:]
+    out = dec.flash_decode_cuda(q[..., :32].float(), k[..., :32].float(),
+                                k[..., :32].float(), lens_view, bk=16)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+
+
+def _decode_case(cuda, B, S, KV, G, d, bk, dtype, lengths, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, KV, G, d), (B, S, KV, d), (B, S, KV, d)))
+    n_blk = S // bk
+    tables = (torch.randperm(B * n_blk, generator=g, device=cuda) + 1).reshape(B, n_blk)
+    tables = tables.to(torch.int32)
+    kpool, vpool = (torch.randn((B * n_blk + 1, bk, KV, d), generator=g, device=cuda).to(dtype)
+                    for _ in "kv")
+    kpool[tables.long()] = k.reshape(B, n_blk, bk, KV, d)
+    vpool[tables.long()] = v.reshape(B, n_blk, bk, KV, d)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    return q, k, v, kpool, vpool, tables, lengths
+
+
+def _assert_decode_matches_plain(got, want, dtype):
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= dec.FP32_TOL * float(want.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("G,d,S,bk", [
+    (1, 16, 32, 8), (2, 16, 32, 8), (3, 16, 32, 8),       # tests/test_torch_decode_attention.py
+    (2, 240, 256, 64), (16, 240, 128, 32),                # gemma3-12b's head_dim
+    (3, 64, 256, 16), (10, 256, 512, 64), (4, 40, 96, 24),
+])
+def test_decode_kernels_at_every_head_dim_and_dtype(cuda, G, d, S, bk, dtype):
+    """Kernel against the plain version (bf16 bitwise, fp32 within
+    FP32_TOL of scale), paged == contiguous bitwise at bk == block_size in
+    both types, with and without a window, through ``ops`` as well."""
+    B, KV = 4, 2
+    q, k, v, kpool, vpool, tables, lengths = _decode_case(
+        cuda, B, S, KV, G, d, bk, dtype, [0, 7, S // 2 + 1, S], seed=G * d + S)
+    contig = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
+    paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
+    again = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
+    torch.cuda.synchronize()
+    assert contig.dtype == dtype and torch.equal(contig, paged) and torch.equal(contig, again)
+    _assert_decode_matches_plain(contig, dec.decode_attention_plain(q, k, v, lengths, bk=bk),
+                                 dtype)
+    assert torch.equal(attn_ops.decode_attention(q, k, v, lengths, bk=bk), contig)
+    for window in (None, 5):
+        got = attn_ops.decode_attention_paged(q, kpool, vpool, tables, lengths, window=window)
+        want = dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths, window=window)
+        _assert_decode_matches_plain(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -122,13 +209,40 @@ def test_gemm_kernel_matches_plain(cuda, M, K, N, trans_b):
 
 
 @pytest.mark.cuda
-def test_gemm_rows_do_not_depend_on_m(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_rows_do_not_depend_on_m(cuda, dtype):
     """One block sums each output in a fixed order: a row's bits are the
-    same whatever the other rows are (decode M and prefill M agree)."""
+    same whatever the other rows are (decode M and prefill M agree, across
+    the 16 -> 64 row-tile switch)."""
     g = torch.Generator(device=cuda).manual_seed(5)
-    a, b = _randn((40, 960), g, cuda), _randn((960, 320), g, cuda)
+    a, b = (_randn(s, g, cuda).to(dtype) for s in ((40, 960), (960, 320)))
     full = matmul_cuda(a, b)
+    assert full.dtype == dtype
     assert torch.equal(matmul_cuda(a[:8].contiguous(), b), full[:8])
+    assert torch.equal(matmul_cuda(a[:16].contiguous(), b), full[:16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,K", [(128, 128, 128), (256, 384, 512), (64, 128, 256),
+                                   (100, 130, 70)])
+def test_gemm_reference_grid_through_ops(cuda, M, N, K, dtype):
+    """``tests/test_kernels.py::test_matmul_shapes`` through ``ops.matmul``
+    and ``ops.matmul_abft`` on CUDA tensors: fp32 within 1e-5 of the
+    output's scale (full fp32, sums in other orders), bf16 within one ulp;
+    the checksum GEMM's product bitwise the GEMM's, no flag."""
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    b = torch.randn((K, N), generator=g, device=cuda).to(dtype)
+    for trans_b in (False, True):
+        bb = b.T.contiguous() if trans_b else b
+        got = mmops.matmul(a, bb, trans_b=trans_b)
+        out, bad = mmops.matmul_abft(a, bb, trans_b=trans_b)
+        torch.cuda.synchronize()
+        want = matmul_plain(a, bb, trans_b=trans_b).float()
+        rel = 1e-5 if dtype == torch.float32 else 2.0**-7
+        assert got.dtype == dtype and torch.equal(out, got) and not bool(bad)
+        assert float((got.float() - want).abs().max()) <= rel * float(want.abs().max())
 
 
 @pytest.mark.cuda
@@ -161,10 +275,11 @@ def test_gemm_abft_kernel(cuda, M, K, N, trans_b):
 
 
 @pytest.mark.cuda
-def test_gemm_abft_rows_do_not_depend_on_m_across_the_tile_switch(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_abft_rows_do_not_depend_on_m_across_the_tile_switch(cuda, dtype):
     """16 rows take the 16-row tile, 17 the 64-row tile: a row's bits stay."""
     g = torch.Generator(device=cuda).manual_seed(6)
-    a, b = _randn((17, 960), g, cuda), _randn((960, 2560), g, cuda)
+    a, b = (_randn(s, g, cuda).to(dtype) for s in ((17, 960), (960, 2560)))
     o16, _ = matmul_abft_cuda(a[:16].contiguous(), b)
     o17, _ = matmul_abft_cuda(a, b)
     assert torch.equal(o16, o17[:16])
@@ -197,7 +312,7 @@ def test_gemm_abft_calibration_on_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("matmul", ["xla", "pallas"])
 def test_engine_abft_tokens_equal_abft_off_on_the_card(cuda, matmul):
-    cfg = dataclasses.replace(get("smollm-360m-smoke"), n_heads=6, head_dim=64)
+    cfg = get("smollm-360m-smoke")  # its own head_dim 16
     params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (5, 37, 12, 60, 3)]
@@ -221,8 +336,7 @@ def test_engine_abft_tokens_equal_abft_off_on_the_card(cuda, matmul):
 @pytest.mark.cuda
 @pytest.mark.parametrize("matmul", ["xla", "pallas"])
 def test_engine_on_the_card_paged_equals_contiguous(cuda, matmul):
-    # smoke widths with the served head shape (head_dim 64, G = 3)
-    cfg = dataclasses.replace(get("smollm-360m-smoke"), n_heads=6, head_dim=64)
+    cfg = get("smollm-360m-smoke")  # its own head_dim 16
     params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
     rng = np.random.default_rng(0)
     pre = rng.integers(0, cfg.vocab, 37).astype(np.int32)
@@ -292,7 +406,58 @@ def test_conv2d_ops_routes_on_the_card(cuda):
     want = cv.conv2d_plain(x, w, convops.choose_conv_blocks(2, 13, 13, 16, 32, 3, 3)).float()
     assert bool(((got.float() - want).abs() <= _conv_tol(want)).all())
     with pytest.raises(ValueError):
-        convops.conv2d(x.float(), w.float())  # the kernel takes bf16 only
+        convops.conv2d(x.double(), w.double())  # the kernel takes bf16 and fp32 only
+    cv.conv2d_cuda.launches = 0
+    got32 = convops.conv2d(x.float(), w.float())  # fp32 runs the kernel too
+    assert cv.conv2d_cuda.launches == 1 and got32.dtype == torch.float32
+    tiles32 = convops.choose_conv_blocks(2, 13, 13, 16, 32, 3, 3, word_bytes=4)
+    want32 = cv.conv2d_plain(x.float(), w.float(), tiles32)
+    assert float((got32 - want32).abs().max()) <= 1e-5 * float(want32.abs().max())
+
+
+def _conv32_tol(want):
+    return 1e-5 * want.abs() + 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,C,K,F", [(1, 8, 8, 16, 3), (2, 13, 16, 8, 3), (1, 6, 4, 4, 1),
+                                       (2, 10, 3, 5, 5)])
+def test_conv2d_reference_grid_through_ops(cuda, B, H, C, K, F, dtype):
+    """``tests/test_kernels.py::test_conv2d_shapes`` through ``ops.conv2d``
+    on CUDA tensors, against the plain version on the same tile: fp32
+    within 1e-5 of the element plus 1e-5 of the scale (full fp32 on the
+    CUDA cores, sums in other orders), bf16 within one ulp plus 1e-3."""
+    g = torch.Generator(device=cuda).manual_seed(B * H + C + K + F)
+    x = torch.randn((B, H, H, C), generator=g, device=cuda).to(dtype)
+    w = torch.randn((F, F, C, K), generator=g, device=cuda).to(dtype)
+    cv.conv2d_cuda.launches = 0
+    got = convops.conv2d(x, w)
+    again = convops.conv2d(x, w)
+    torch.cuda.synchronize()
+    assert cv.conv2d_cuda.launches == 2 and torch.equal(got, again)
+    t = convops.choose_conv_blocks(B, H - F + 1, H - F + 1, C, K, F, F,
+                                   word_bytes=x.element_size())
+    want = cv.conv2d_plain(x, w, t).float()
+    tol = _conv32_tol(want) if dtype == torch.float32 else _conv_tol(want)
+    assert got.dtype == dtype and bool(((got.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,F,X", [(64, 64, 3, 56), (256, 384, 3, 13), (480, 192, 1, 14),
+                                     (16, 32, 5, 27)])
+def test_conv2d_fp32_tiles_fit_and_match_plain(cuda, C, K, F, X):
+    """The search's fp32 tiles, fitted in 4-byte words, all launch (none
+    is refused for its shared memory) and match the plain version."""
+    t = convops.choose_conv_blocks(2, X, X, C, K, F, F, word_bytes=4)
+    assert t.smem_bytes(F, F, 4) <= hw.SMEM_BUDGET_BYTES
+    g = torch.Generator(device=cuda).manual_seed(C + K + F)
+    x = torch.randn((2, X + F - 1, X + F - 1, C), generator=g, device=cuda)
+    w = torch.randn((F, F, C, K), generator=g, device=cuda) * 0.1
+    got = cv.conv2d_cuda(x, w, t)
+    torch.cuda.synchronize()
+    want = cv.conv2d_plain(x, w, t)
+    assert bool(((got - want).abs() <= _conv32_tol(want)).all())
 
 
 @pytest.mark.cuda
@@ -370,13 +535,54 @@ def test_wkv6_rejects_what_the_kernel_does_not_take(cuda):
         wkv6_cuda(r.bfloat16(), k.bfloat16(), v.bfloat16(), w.bfloat16(), u, s0)
     with pytest.raises(ValueError):
         wkv6_cuda(r, k, v, w, u, s0.double())
-    with pytest.raises(ValueError):  # head size 64 only
-        wkv6_cuda(r[..., :32], k[..., :32], v[..., :32], w[..., :32], u[:, :32],
-                  s0[..., :32, :32].contiguous())
-    with pytest.raises(ValueError):  # one layout for all four streams
-        wkv6_cuda(r, k, v.transpose(1, 2).contiguous().transpose(1, 2), w, u, s0)
+    with pytest.raises(ValueError):  # head sizes 16, 32 and 64 only
+        wkv6_cuda(r[..., :48], k[..., :48], v[..., :48], w[..., :48], u[:, :48].contiguous(),
+                  s0[..., :48, :48].contiguous())
+    with pytest.raises(ValueError):
+        wkv6_cuda(r, k, v[..., :8], w, u, s0[..., :8].contiguous())
+    with pytest.raises(ValueError):  # s0 must be (B, H, Dk, Dv)
+        wkv6_cuda(r, k, v[..., :32], w, u, s0[..., :32, :].contiguous())
+    # what the reference takes runs: Dk 32 with Dv 64
+    out, sT = wkv6_cuda(r[..., :32], k[..., :32], v, w[..., :32], u[:, :32].contiguous(),
+                        s0[..., :32, :].contiguous())
+    assert out.shape == v.shape and sT.shape == (1, 2, 32, 64)
+    with pytest.raises(ValueError):  # one layout for r, k and w
+        wkv6_cuda(r, k.transpose(1, 2).contiguous().transpose(1, 2), v, w, u, s0)
+    # v has strides of its own (its head size may differ from r's): another
+    # dense layout runs, and its output comes back in it
+    v_t = v.transpose(1, 2).contiguous().transpose(1, 2)
+    out, sT = wkv6_cuda(r, k, v_t, w, u, s0)
+    assert out.stride() == v_t.stride()
+    _assert_wkv_close((out, sT), wkv6_plain(r, k, v, w, u, s0))
     with pytest.raises(ValueError):
         wkv6_cuda(r, k, v, w, u, s0.transpose(2, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,Dk,Dv", [(8, 16, 16), (32, 64, 64), (17, 32, 64), (9, 64, 16),
+                                     (5, 16, 32)])
+def test_wkv6_reference_grid_through_ops(cuda, T, Dk, Dv):
+    """``tests/test_kernels.py::test_wkv6_kernel``'s (T, Dk, Dv) and more
+    pairs apart through ``ops.wkv6`` on CUDA tensors, (B, H, T, D) views of
+    (B, T, H, D) storage, against the plain version within 1e-5 of scale."""
+    B, H = 2, 3
+    g = torch.Generator(device=cuda).manual_seed(T * 100 + Dk + Dv)
+
+    def stream(D):
+        return torch.randn((B, T, H, D), generator=g, device=cuda).transpose(1, 2)
+
+    r, k, v = stream(Dk), stream(Dk), stream(Dv)
+    w = torch.sigmoid(stream(Dk))
+    u = torch.randn((H, Dk), generator=g, device=cuda)
+    s0 = torch.randn((B, H, Dk, Dv), generator=g, device=cuda)
+    wkv6_cuda.launches = 0
+    got = ls_ops.wkv6(r, k, v, w, u, s0)
+    again = ls_ops.wkv6(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wkv6_cuda.launches == 2
+    assert got[0].shape == (B, H, T, Dv) and got[0].stride() == v.stride()
+    _assert_wkv_close(got, wkv6_plain(r, k, v, w, u, s0))
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 @pytest.mark.cuda
@@ -497,12 +703,12 @@ def test_linear_scan_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_hybrid_launch_counts_and_engine_batched_equals_solo(cuda):
-    """recurrentgemma-2b-smoke, widened to head_dim 64 (the decode kernel
-    takes 64, 128 and 256), on the card: one scan launch per rnn layer per
-    prefill and decode call, one decode-attention launch per attention
-    layer per decode step under ``attention="flash"``; batched output ==
-    solo output through the engine."""
-    cfg = dataclasses.replace(get("recurrentgemma-2b-smoke"), head_dim=64)
+    """recurrentgemma-2b-smoke at its own head_dim 16, on the card: one
+    scan launch per rnn layer per prefill and decode call, one
+    decode-attention launch per attention layer per decode step under
+    ``attention="flash"``; batched output == solo output through the
+    engine."""
+    cfg = get("recurrentgemma-2b-smoke")
     model = build(cfg)
     params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
     caches = model.init_caches(2, 32, cuda)
@@ -523,3 +729,111 @@ def test_hybrid_launch_counts_and_engine_batched_equals_solo(cuda):
     assert [o.status for o in outs] == [te.RequestStatus.FINISHED] * 4
     solo = te.Engine(cfg, params, scfg).run([reqs[1]])[0]
     assert np.array_equal(solo, outs[1])
+
+
+# ---------------------------------------------------------- flash attention
+
+
+def _flash_inputs(cuda, B, Tq, Tk, KV, G, d, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, Tq, KV, G, d), (B, Tk, KV, d), (B, Tk, KV, d)))
+
+
+def _flash_check(q, k, v, **kw):
+    """The kernel through ``ops.flash_attention`` (twice: repeat runs
+    bitwise, one launch each) against the plain version on the same
+    inputs, each (b, t, head) row held to its own norm: ||got - want||
+    within 1e-5 of ||want|| in fp32, 1e-2 in bf16.  One scale for the
+    whole tensor would be set by the early rows, which see few keys, and
+    hide a dropped or misplaced key tile in the late ones."""
+    fa.flash_attention_cuda.launches = 0
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    again = attn_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == 2
+    want = attn_ops.flash_attention(q, k, v, impl="plain", **kw).float()
+    rel = 1e-5 if q.dtype == torch.float32 else 1e-2
+    assert got.shape == q.shape and got.dtype == q.dtype and torch.equal(got, again)
+    err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    assert float(err.max()) <= rel, float(err.max())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Tq,Tk,window", [
+    (128, 128, None), (256, 256, None), (128, 128, 32), (64, 192, None),
+])
+def test_flash_attention_kernel_reference_grid(cuda, Tq, Tk, window, dtype):
+    """``tests/test_kernels.py``'s flash-attention cases (bq = bk = 64) and
+    its cached decode (offset 100, kv_len 108)."""
+    _flash_check(*_flash_inputs(cuda, 2, Tq, Tk, 2, 2, 32, dtype, Tq + Tk),
+                 window=window, bq=64, bk=64)
+    _flash_check(*_flash_inputs(cuda, 1, 8, 128, 1, 2, 32, dtype, 5),
+                 q_offset=100, kv_len=108, bq=8, bk=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,d", [(1, 16), (3, 16), (2, 24), (1, 240), (3, 256), (2, 136)])
+def test_flash_attention_kernel_groups_head_dims_and_variants(cuda, G, d, dtype):
+    """Head dims that are multiples of 8 but not 16, ragged tiles, both
+    variants, a non-causal window, a chunk over a longer cache."""
+    q, k, v = _flash_inputs(cuda, 2, 70, 90, 2, G, d, dtype, G * d)
+    _flash_check(q, k, v)
+    _flash_check(q, k, v, q_offset=20, kv_len=85)
+    _flash_check(q, k, v, causal=False, window=12, bk=32)
+    _flash_check(q, k, v, window=30, q_offset=15, kv_len=200, bk=24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_rows_with_no_live_key(cuda, dtype):
+    """A query with no live key is the mean of the V rows the reference
+    visits: static, 64 queries over 40 keys, window 16, bk 32 (64 visited,
+    24 of them padding); dynamic, offset 100, kv_len 40, window 16, bk 16
+    (keys [0, 48) visited)."""
+    q, k, v = _flash_inputs(cuda, 1, 64, 40, 1, 2, 16, dtype, 11)
+    got = _flash_check(q, k, v, window=16, bk=32)
+    mean = v[0, :, 0].float().sum(0) / 64
+    assert float((got[0, 55:].float() - mean).abs().max()) <= 1e-2 * float(mean.abs().max())
+    q, k, v = _flash_inputs(cuda, 1, 8, 64, 1, 2, 16, dtype, 12)
+    got = _flash_check(q, k, v, window=16, q_offset=100, kv_len=40, bk=16)
+    mean = v[0, :48, 0].float().mean(0)
+    assert float((got[0].float() - mean).abs().max()) <= 1e-2 * float(mean.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["smollm", "recurrentgemma", "gemma3", "smollm_chunk"])
+def test_flash_attention_kernel_full_width_shapes(cuda, case):
+    """The served models' prefill shapes at one layer, bf16: smollm-360m
+    (8 x 1024 tokens, 15 heads on 5, d 64), recurrentgemma-2b's attention
+    layer (2048 tokens, 10 heads on 1, d 256, window 2048), gemma3-12b's
+    local layer (4096 tokens, 16 heads on 8, d 240, window 1024), and a
+    smollm chunk of 256 queries at offset 768 over 1024 keys."""
+    B, Tq, Tk, KV, G, d, kw = {
+        "smollm": (8, 1024, 1024, 5, 3, 64, {}),
+        "recurrentgemma": (1, 2048, 2048, 1, 10, 256, dict(window=2048)),
+        "gemma3": (1, 4096, 4096, 8, 2, 240, dict(window=1024)),
+        "smollm_chunk": (8, 256, 1024, 5, 3, 64, dict(q_offset=768, kv_len=1024)),
+    }[case]
+    q, k, v = _flash_inputs(cuda, B, Tq, Tk, KV, G, d, torch.bfloat16, 21)
+    got = _flash_check(q, k, v, **kw)
+    assert bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(cuda, 1, 16, 16, 1, 2, 64, torch.bfloat16, 1)
+    with pytest.raises(ValueError):  # mixed types
+        attn_ops.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError):  # bf16 and fp32 only
+        attn_ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):  # head_dim a multiple of 8
+        attn_ops.flash_attention(q[..., :12], k[..., :12], v[..., :12])
+    wide = torch.zeros((1, 16, 1, 264), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # up to 256
+        attn_ops.flash_attention(wide[:, :, :, None].expand(1, 16, 1, 2, 264), wide, wide)
+    with pytest.raises(ValueError):  # no CPU operand beside CUDA ones
+        attn_ops.flash_attention(q, k.cpu(), v)

@@ -29,14 +29,17 @@ from repro_torch.kernels.linear_scan.ref import wkv6_ref as tref  # noqa: E402
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-def _inputs(B, H, T, D, seed, s0_scale):
+def _inputs(B, H, T, D, seed, s0_scale, Dv=None):
     """r, k, v ~ N(0, 1), a decay w in (0, 1) that varies per step and
-    channel, u ~ N(0, 1), s0 ~ s0_scale * N(0, 1); (B, H, T, D) layout."""
+    channel, u ~ N(0, 1), s0 ~ s0_scale * N(0, 1); (B, H, T, D) layout,
+    v of head size ``Dv`` (default D) and s0 (B, H, D, Dv)."""
+    Dv = D if Dv is None else Dv
     rng = np.random.default_rng(seed)
-    r, k, v = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in "rkv")
+    r, k = (rng.standard_normal((B, H, T, D)).astype(np.float32) for _ in "rk")
+    v = rng.standard_normal((B, H, T, Dv)).astype(np.float32)
     w = np.exp(-np.exp(rng.normal(-1.0, 1.0, (B, H, T, D)))).astype(np.float32)
     u = rng.standard_normal((H, D)).astype(np.float32)
-    s0 = (s0_scale * rng.standard_normal((B, H, D, D))).astype(np.float32)
+    s0 = (s0_scale * rng.standard_normal((B, H, D, Dv))).astype(np.float32)
     return r, k, v, w, u, s0
 
 
@@ -55,6 +58,25 @@ def test_wkv6_plain_matches_reference_kernel_and_ref(B, H, T, D, s0_scale):
         np.testing.assert_allclose(t_out.numpy(), np.asarray(want_out), **TOL)
         np.testing.assert_allclose(t_s.numpy(), np.asarray(want_s), **TOL)
     # the entry point on CPU tensors is the plain version, bit for bit
+    assert torch.equal(e_out, t_out) and torch.equal(e_s, t_s)
+
+
+@pytest.mark.parametrize("Dk,Dv", [(32, 64), (16, 64), (64, 16), (16, 32)])
+def test_wkv6_plain_matches_reference_at_other_key_and_value_sizes(Dk, Dv):
+    """Key and value head sizes apart, as ``wkv6_pallas`` takes them
+    (``tests/test_kernels.py::test_wkv6_kernel`` runs Dk, Dv = 32, 64): the
+    plain version and the entry point against the reference's kernel in
+    interpret mode and its ref, output (B, H, T, Dv), state (B, H, Dk, Dv)."""
+    B, H, T = 2, 3, 17
+    args = _inputs(B, H, T, Dk, seed=Dk * 7 + Dv, s0_scale=1.0, Dv=Dv)
+    j_out, j_s = jops.wkv6(*map(jnp.asarray, args), interpret=True)
+    r_out, r_s = jref(*map(jnp.asarray, args))
+    t_out, t_s = wkv6_plain(*map(torch.from_numpy, args))
+    e_out, e_s = tops.wkv6(*map(torch.from_numpy, args))
+    assert t_out.shape == (B, H, T, Dv) and t_s.shape == (B, H, Dk, Dv)
+    for want_out, want_s in ((j_out, j_s), (r_out, r_s)):
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(want_out), **TOL)
+        np.testing.assert_allclose(t_s.numpy(), np.asarray(want_s), **TOL)
     assert torch.equal(e_out, t_out) and torch.equal(e_s, t_s)
 
 
