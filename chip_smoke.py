@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --decode    # the decode-attention checks alone
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -14,7 +15,9 @@ result.  Phases, any failure of which exits non-zero:
    serve path (smollm-360m: 5 KV heads of 3 query heads, head_dim 64, 8
    slots, a 1024-token cache, 16-token blocks; the five projection GEMMs at
    a decode and a prefill M) and time kernel, plain version and one
-   PyTorch library call, each with a cold L2;
+   PyTorch library call, each with a cold L2 (for decode attention also
+   the kernel/SDPA ratio, the grid, and each kernel phase's time from the
+   blocks' device-clock stamps);
 3. serve full-width smollm-360m (32 layers, random weights from a seeded
    generator) through the port's ``Engine``: 16 requests, half of them
    sharing a 256-token prefix, up to 64 greedy tokens each, in four runs
@@ -100,6 +103,11 @@ result.  Phases, any failure of which exits non-zero:
 9. check one full-width smollm-360m decode step through the kernels against
    the plain path on the card, then print the ``kernels`` summary and, last,
    the ``{"ok": true, ...}`` line.
+
+``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
+and 8 (c) (kernel against plain, paged == contiguous, times beside the
+bound, the plain version and SDPA), prints their rows as JSON and stops:
+no ``ok`` line.
 """
 
 from __future__ import annotations
@@ -206,6 +214,10 @@ KERNEL_INFO = {
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:183"),
 }
+# the name of every kernel a decode-attention call launches (one:
+# csrc/decode_attention.cu's decode_kernel, which splits the KV across a
+# cluster and replays the partials in the same launch)
+DECODE_KERNEL = "decode_kernel"
 # the five projection GEMMs of smollm-360m: (K, N, B transposed)
 GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
                (2560, 960, False), (960, 49152, True)]
@@ -262,6 +274,28 @@ def bound_ms(nbytes: float, flops: float, peak: float = hw.BF16_FLOPS_PER_S) -> 
 
 
 # ----------------------------------------------------------- kernel phase --
+
+DECODE_PHASES = ("scores", "barrier_1", "partials", "barrier_2", "replay")
+
+
+def decode_phase_us(kern_fn, grid: int) -> dict:
+    """One launch of a decode-attention wrapper with ``dec.PHASE_STAMPS``
+    set, after the L2 was overwritten: per phase of the kernel the mean and
+    the largest time over its blocks (device clock, us), and the span from
+    the first block's entry to the last block's exit."""
+    stamps = torch.zeros((grid, dec.STAMPS_PER_BLOCK), dtype=torch.int64, device=DEV)
+    _flush_buf.zero_()
+    dec.PHASE_STAMPS = stamps
+    try:
+        kern_fn()
+        torch.cuda.synchronize()
+    finally:
+        dec.PHASE_STAMPS = None
+    st = stamps.double().cpu() / 1e3
+    d = st[:, 1:] - st[:, :-1]
+    out = {n: (float(d[:, i].mean()), float(d[:, i].max())) for i, n in enumerate(DECODE_PHASES)}
+    out["span"] = float(st[:, -1].max() - st[:, 0].min())
+    return out
 
 
 def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int,
@@ -323,6 +357,7 @@ def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int
         ),
     }
     fp32 = dtype == torch.float32
+    plan = dec.plan(B, KV, G, d, bk, n_blk, q.element_size())
     for name, (got, plain_fn, kern_fn, extra_bytes) in cases.items():
         want = plain_fn()
         err = (got.float() - want.float()).abs()
@@ -341,11 +376,20 @@ def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int
             ms=time_ms(kern_fn), plain_ms=time_ms(plain_fn, iters=5),
             library_ms=time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask)),
             bound_ms=b_ms, bound_by=b_by, shape=f"{shape} live_keys={live_keys}",
+            grid=plan.grid(B, KV), cluster=plan.cluster,
+            kernels_per_call=dec.KERNELS_PER_CALL,
         )
+        row["library_ratio"] = row["ms"] / row["library_ms"]
+        row["phase_us"] = ph = decode_phase_us(kern_fn, plan.grid(B, KV))
         print(f"{name} {shape}: max_abs_err={row['max_abs_err']:.3e} "
               f"({tol if isinstance(tol, str) else f'tol {tol:.3e}'}) ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+              f"library_ms={row['library_ms']:.4f} (kernel/SDPA {row['library_ratio']:.2f}x) "
+              f"bound_ms={b_ms:.4f} ({b_by}); grid {row['grid']} blocks in clusters of "
+              f"{plan.cluster}, {dec.KERNELS_PER_CALL} kernel per call", flush=True)
+        print(f"  phases, us (mean / max over blocks): " + ", ".join(
+            f"{n} {ph[n][0]:.2f} / {ph[n][1]:.2f}" for n in DECODE_PHASES)
+            + f"; first entry to last exit {ph['span']:.2f}", flush=True)
 
 
 def check_gemm(results: dict, prefill_m: int) -> None:
@@ -1198,6 +1242,16 @@ def check_rg_layer(cfg, params) -> dict:
     return out
 
 
+def check_decode_d256(results: dict, cfg) -> None:
+    """(a) of phase 7 for decode attention: head_dim 256, 10 query heads on
+    one KV head, six of eight rows wrapped (every slot of the 2048-slot ring
+    live)."""
+    S = cfg.sliding_window
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, S, attn_ops._pick_decode_bk(S),
+                 [37, 1500] + [S] * (SLOTS - 2), suffix="_d256")
+
+
 def rg_phase(totals: dict, results: dict) -> dict:
     """Phase 7 of the module docstring."""
     cfg = get("recurrentgemma-2b")
@@ -1205,11 +1259,7 @@ def rg_phase(totals: dict, results: dict) -> dict:
     n_attn = cfg.n_layers - n_rnn
     print("-- (a, b) the kernels against their plain versions, and their times", flush=True)
     check_linear_scan(results, cfg.rnn_width)
-    # six of eight rows wrapped (every slot of the 2048-slot ring live)
-    S = cfg.sliding_window
-    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                 cfg.resolved_head_dim, S, attn_ops._pick_decode_bk(S),
-                 [37, 1500] + [S] * (SLOTS - 2), suffix="_d256")
+    check_decode_d256(results, cfg)
     params = rg_params(cfg)
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"-- (c) serve {cfg.name}: {cfg.n_layers} layers ({n_rnn} RG-LRU, {n_attn} "
@@ -1232,7 +1282,7 @@ def rg_phase(totals: dict, results: dict) -> dict:
     print("-- (d) layer 0's real operands", flush=True)
     layer = check_rg_layer(cfg, params)
     print("-- (e) where a decode step's time goes", flush=True)
-    prof = profile_decode(cfg, params, reqs, focus=("linear_scan", "decode_kernel"), **common)
+    prof = profile_decode(cfg, params, reqs, focus=("linear_scan", DECODE_KERNEL), **common)
     print("-- (f) one full-width decode step, kernels against the plain path", flush=True)
     step_err = check_decode_step(cfg, params)
     return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof,
@@ -1377,9 +1427,9 @@ def flash_phase(totals: dict, results: dict) -> None:
     )
 
 
-def check_widened(results: dict) -> None:
-    """Phase 8 (c): each widened kernel at the dtypes and sizes it took on
-    in this slice, against its plain version, with its times."""
+def check_decode_widened(results: dict) -> None:
+    """Phase 8 (c) for decode attention: head_dim 16 and 240 in bf16,
+    smollm-360m's shape in fp32."""
     lengths = [0, 1, 17, 100, 255, 300, 777, 1024]
     print("-- decode attention at the -smoke head_dim 16 (4 heads on 2) and gemma3-12b's "
           "240 (16 on 8, a 1024-slot window ring, bk 64), bf16; smollm-360m's shape in "
@@ -1391,6 +1441,12 @@ def check_widened(results: dict) -> None:
                  attn_ops._pick_decode_bk(cfg.sliding_window), lengths, suffix="_d240")
     check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS, lengths, suffix="_fp32",
                  dtype=torch.float32)
+
+
+def check_widened(results: dict) -> None:
+    """Phase 8 (c): each widened kernel at the dtypes and sizes it took on
+    in this slice, against its plain version, with its times."""
+    check_decode_widened(results)
 
     print("-- the GEMM and the checksum GEMM in fp32 at smollm-360m's five projection "
           "shapes, M = 8 (within 1e-5 of the output's scale; the checksum GEMM's product "
@@ -1551,6 +1607,14 @@ def main() -> None:
     results: dict = {}
     check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
                  [0, 1, 17, 100, 255, 300, 777, 1024])
+    if sys.argv[1:] == ["--decode"]:
+        # decode attention alone: phase 2's shape, 7 (a)'s and 8 (c)'s
+        check_decode_d256(results, get("recurrentgemma-2b"))
+        check_decode_widened(results)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"decode": results}))
+        return
     cfg = get("smollm-360m")
     # the first admission prefills the 8 prefix-sharing prompts, padded to
     # the 16-token bucket above PREFIX + 15, as one batch

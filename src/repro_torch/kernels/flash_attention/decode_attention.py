@@ -11,7 +11,12 @@ token per (row, kv head) attends over a ragged prefix of the row's KV:
 
 The CUDA kernels (``kernels/csrc/decode_attention.cu``) share one body, so
 paged equals contiguous bitwise at ``bk == block_size`` on the card.  The
-plain versions are the reference's jnp twins (``decode_attention_xla``,
+KV of each (row, kv head) is split across the blocks of one thread-block
+cluster (:func:`plan`); the splits run in parallel and an ordered fp32
+replay of their partials reproduces the plain recurrence bit for bit.
+One launch per call; the wrapper allocates the kernel's fp32 workspace
+and never reads ``lengths`` back to the host.  The plain versions are the
+reference's jnp twins (``decode_attention_xla``,
 ``decode_attention_paged_xla``): the same blocked online-softmax recurrence
 vectorized over rows, looping to the batch's deepest live split; a fully
 masked split contributes exactly zero, so padding rows to the batch max
@@ -41,6 +46,7 @@ A CUDA tensor launches the kernel or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -50,10 +56,10 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGS = {
-    "flash_decode": [_P] * 5 + [_I] * 7 + [_F, _P],
-    "flash_decode_paged": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "flash_decode": [_P] * 6 + [_L, _P] + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    "flash_decode_paged": [_P] * 7 + [_L, _P] + [_I] * 8 + [_F] + [_I] * 3 + [_P],
 }
 MAX_HEAD_DIM = 256  # head_dim: a multiple of 8 up to this
 MAX_G = 16
@@ -62,14 +68,86 @@ DTYPES = (torch.bfloat16, torch.float32)
 # kernel vs plain version in fp32, of the output's largest magnitude: fp64
 # sums of fp32 products in two orders, each rounded once to fp32
 FP32_TOL = 1e-6
+THREADS = 256      # threads of one block
+MAX_CLUSTER = 8    # blocks per (row, kv head): the portable cluster size
+TILE_KEYS = 64     # a tile holds whole splits, at least this many keys
+KERNELS_PER_CALL = 1
+# Each block's device clock (ns) at entry, after phase 1 (scores), the
+# first cluster barrier, phase 2 (split partials), the second barrier and
+# exit.  Set PHASE_STAMPS to an int64 CUDA tensor of grid * STAMPS_PER_BLOCK
+# entries and the next launches write them there (chip_smoke.py times the
+# phases so); None, the default, records nothing.
+STAMPS_PER_BLOCK = 6
+PHASE_STAMPS: torch.Tensor | None = None
 
 
-def smem_bytes(G: int, d: int, bk: int, itemsize: int) -> int:
-    """Dynamic shared memory one block of the kernel asks for: the K and V
-    tiles (K rows padded by 16 bytes), then the running max, normaliser and
-    rescale of up to 16 heads, the q and accumulator rows and the split's
-    scores in fp32 (``smem_bytes`` in ``csrc/decode_attention.cu``)."""
-    return (3 * MAX_G + 2 * G * d + G * bk) * 4 + bk * (2 * d * itemsize + 16)
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the kernel cuts one call: ``ts`` splits per K/V tile, ``nbuf``
+    cp.async ring stages (1-4) and ``cluster`` blocks per (row, kv head).
+    None of it changes a bit of the output: it decides only which block and
+    which tile take a split, and every sum's order is fixed by d and bk."""
+
+    ts: int
+    nbuf: int
+    cluster: int
+
+    def grid(self, B: int, KV: int) -> int:
+        return B * KV * self.cluster
+
+
+def _bank_stride(nbytes: int, mod: int) -> int:
+    """``bank_stride`` in the kernel: the least stride >= nbytes that is
+    ``mod`` bytes past a multiple of 128."""
+    return -(-(nbytes - mod) // 128) * 128 + mod
+
+
+def smem_bytes(G: int, d: int, bk: int, itemsize: int, ts: int, nbuf: int) -> int:
+    """Dynamic shared memory one block asks for (``Layout`` in
+    ``csrc/decode_attention.cu``): ``nbuf`` stages of a K/V tile and its
+    score rows; q and the tile's p in fp64, in rows of 8 heads; the tile's
+    split and prefix maxima; the per-warp and per-block maxima of 16
+    heads."""
+    bkp = -(-bk // 4) * 4
+    mt8 = -(-G // 8) * 8
+    stage = ts * bk * _bank_stride(d * itemsize, 16) + ts * G * bkp * 4
+    split = -(-(3 * ts * G * 4) // 16) * 16
+    return (nbuf * stage + mt8 * _bank_stride(d * 8, 32) + ts * mt8 * _bank_stride(bkp * 8, 32)
+            + split + (THREADS // 32 + 2) * MAX_G * 4)
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of the kernel one SM holds: at most 3 by registers
+    (``__launch_bounds__(256, 3)``), and by shared memory (each block also
+    costs the system's 1 KB)."""
+    return min(3, hw.SMEM_PER_SM_BYTES // (smem + hw.SMEM_RESERVED_PER_BLOCK_BYTES))
+
+
+def plan(B: int, KV: int, G: int, d: int, bk: int, n_splits: int, itemsize: int) -> Plan:
+    """The launch plan for B rows of KV heads, G query heads of head_dim d,
+    splits of bk keys and ``n_splits`` splits per row: short splits grouped
+    into tiles of at least 64 keys (eight warps of 8-key mma columns); as
+    many blocks per (row, kv head), up to 8, as keep the grid resident at
+    once (a second wave would wait for the first); then the deepest ring
+    (2 to 4 stages; 1 only where 2 do not fit) that keeps that cluster
+    size."""
+    ts = max(1, TILE_KEYS // bk)
+    fits = [nb for nb in (2, 3, 4)
+            if smem_bytes(G, d, bk, itemsize, ts, nb) <= hw.SMEM_PER_BLOCK_BYTES] or [1]
+    best = None
+    for nbuf in fits:
+        resident = max(1, blocks_per_sm(smem_bytes(G, d, bk, itemsize, ts, nbuf))) * hw.SM_COUNT
+        cluster = max(1, min(MAX_CLUSTER, n_splits, resident // max(1, B * KV)))
+        if best is None or cluster >= best.cluster:
+            best = Plan(ts, nbuf, cluster)
+    return best
+
+
+def workspace_floats(B: int, KV: int, G: int, d: int, bk: int, n_splits: int) -> int:
+    """fp32 words of the kernel's workspace: per (row, kv head, split) the
+    G score rows (padded to 4 words) and the partials corr, sum (G each)
+    and pv (G * d)."""
+    return B * KV * n_splits * G * (-(-bk // 4) * 4 + d + 2)
 
 
 # ------------------------------------------------------------ plain versions
@@ -170,9 +248,10 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _check_cuda(q: torch.Tensor, pairs: dict, bk: int) -> None:
-    """Raise on what the kernel does not take; ``pairs`` maps each operand's
-    name to (tensor, dtype), None standing for q's dtype."""
+def _check_cuda(q: torch.Tensor, pairs: dict, bk: int, n_splits: int) -> Plan:
+    """Raise on what the kernel does not take, else return the launch
+    plan; ``pairs`` maps each operand's name to (tensor, dtype), None
+    standing for q's dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention needs CPU or CUDA tensors, got {q.device}")
     if q.device.index != torch.cuda.current_device():
@@ -195,10 +274,16 @@ def _check_cuda(q: torch.Tensor, pairs: dict, bk: int) -> None:
             raise ValueError(f"{name} must be contiguous")
         if dtype in DTYPES and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
-    smem = smem_bytes(G, d, bk, q.element_size())
+    p = plan(B, KV, G, d, bk, n_splits, q.element_size())
+    smem = smem_bytes(G, d, bk, q.element_size(), p.ts, p.nbuf)
     if smem > hw.SMEM_PER_BLOCK_BYTES:
         raise ValueError(f"G={G}, head_dim={d}, split {bk} in {q.dtype} need {smem} B of "
                          f"shared memory, past the {hw.SMEM_PER_BLOCK_BYTES} B a block may have")
+    return p
+
+
+def _stamps_ptr() -> int | None:
+    return None if PHASE_STAMPS is None else PHASE_STAMPS.data_ptr()
 
 
 def flash_decode_cuda(
@@ -219,15 +304,18 @@ def flash_decode_cuda(
         raise ValueError(f"shapes q {q.shape} k {k.shape} v {v.shape} lengths {lengths.shape}")
     if not 1 <= bk <= MAX_BK or S % bk:
         raise ValueError(f"bk={bk} must divide S={S} and be <= {MAX_BK}")
-    _check_cuda(q, {"q": (q, None), "k": (k, None), "v": (v, None),
-                    "lengths": (lengths, torch.int32)}, bk)
+    p = _check_cuda(q, {"q": (q, None), "k": (k, None), "v": (v, None),
+                        "lengths": (lengths, torch.int32)}, bk, S // bk)
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_ws = workspace_floats(B, KV, G, d, bk, S // bk)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     lib = _build.library("decode_attention", _SIGS)
     err = lib.flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, S, KV, G, d, bk, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        ws.data_ptr(), n_ws, _stamps_ptr(), B, S, KV, G, d, bk, int(q.dtype == torch.float32),
+        1.0 / math.sqrt(d), p.ts, p.nbuf, p.cluster,
         torch.cuda.current_stream().cuda_stream,
     )
     _build.check(err, "flash_decode")
@@ -263,21 +351,23 @@ def flash_decode_paged_cuda(
     if not 1 <= bs <= MAX_BK:
         raise ValueError(f"block size {bs} must be <= {MAX_BK}")
     i32 = torch.int32
-    _check_cuda(q, {
+    p = _check_cuda(q, {
         "q": (q, None), "kpool": (kpool, None), "vpool": (vpool, None),
         "tables": (tables, i32), "lengths": (lengths, i32),
-    }, bs)
+    }, bs, n_blk)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0: {window}")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    n_ws = workspace_floats(B, KV, G, d, bs, n_blk)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=q.device)
     lib = _build.library("decode_attention", _SIGS)
     err = lib.flash_decode_paged(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), n_ws, _stamps_ptr(),
         B, n_blk, bs, KV, G, d, -1 if window is None else window,
-        int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        int(q.dtype == torch.float32), 1.0 / math.sqrt(d), p.ts, p.nbuf, p.cluster,
         torch.cuda.current_stream().cuda_stream,
     )
     _build.check(err, "flash_decode_paged")

@@ -25,6 +25,10 @@ is one rounded fp32 multiply and one rounded add in both, no FMA
 contraction.  Decode attention at recurrentgemma-2b's head_dim 256 and 10
 query heads per KV head is held bitwise too, on a ring whose rows are
 wrapped (every slot live), paged == contiguous at ``bk == block_size``.
+The decode kernel splits each row's KV across a thread-block cluster:
+it is held bitwise at split counts 1 to 256 (rows ending in different
+blocks), each row alone against the batch, one launch per call, and its
+wrappers never synchronise the host.
 
 The kernels take every dtype and size their Pallas kernels take: decode
 attention every head_dim that is a multiple of 8 up to 256 and fp32 as
@@ -643,6 +647,81 @@ def test_decode_kernels_at_head_dim_256_and_wide_groups(cuda, G, d, S, bk):
     assert torch.equal(contig, dec.decode_attention_plain(q, k, v, lengths, bk=bk))
     assert torch.equal(paged, dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths))
     assert bool(torch.isfinite(contig.float()).all())
+
+
+def _split_lengths(n, bk):
+    """Rows that end in different blocks of the cluster (min(8, n) blocks
+    over n splits), a length of 0 and one of every slot among them."""
+    S = n * bk
+    return [0, 1, bk, bk + 1, (n // 2) * bk + 3, (3 * n // 4) * bk, S - 1, S]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,G,d,bk", [(1, 10, 256, 64), (7, 3, 64, 16), (9, 10, 256, 64),
+                                      (33, 16, 128, 8), (256, 3, 64, 16)])
+def test_split_decode_at_every_split_count(cuda, n, G, d, bk, dtype):
+    """The cluster-split kernel at split counts 1, 7, 9, 33 and 256 (one
+    block; a cluster of 7; counts that do not divide the cluster of 8;
+    rows with fewer live splits than blocks, and rows ending in each
+    block): kernel == plain (bf16 bitwise, fp32 within FP32_TOL of scale),
+    paged == contiguous bitwise, with and without a window that masks
+    whole leading splits, two calls bitwise equal, one launch per call."""
+    B, KV = 8, 1
+    q, k, v, kpool, vpool, tables, lengths = _decode_case(
+        cuda, B, n * bk, KV, G, d, bk, dtype, _split_lengths(n, bk), seed=n * 31 + d)
+    c0, p0 = dec.flash_decode_cuda.launches, dec.flash_decode_paged_cuda.launches
+    contig = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
+    assert dec.flash_decode_cuda.launches == c0 + 1
+    paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
+    assert dec.flash_decode_paged_cuda.launches == p0 + 1
+    again = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
+    torch.cuda.synchronize()
+    assert torch.equal(contig, paged) and torch.equal(contig, again)
+    _assert_decode_matches_plain(contig, dec.decode_attention_plain(q, k, v, lengths, bk=bk),
+                                 dtype)
+    for window in (None, 1, bk + 3, 3 * bk):
+        got = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths, window=window)
+        want = dec.decode_attention_paged_plain(q, kpool, vpool, tables, lengths, window=window)
+        _assert_decode_matches_plain(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_decode_rows_alone_equal_rows_in_the_batch(cuda, dtype):
+    """A row's output does not depend on the other rows of the batch: the
+    plan follows the shape alone and each (row, kv head) has its own
+    cluster, so decode attention stays row- and length-invariant."""
+    n, G, d, bk = 32, 10, 256, 64
+    q, k, v, kpool, vpool, tables, lengths = _decode_case(
+        cuda, 8, n * bk, 1, G, d, bk, dtype, [37, 1500] + [n * bk] * 6, seed=5)
+    batch = dec.flash_decode_cuda(q, k, v, lengths, bk=bk)
+    paged = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths, window=700)
+    for b in range(8):
+        s = slice(b, b + 1)
+        assert torch.equal(dec.flash_decode_cuda(q[s], k[s], v[s], lengths[s], bk=bk), batch[s])
+        assert torch.equal(
+            dec.flash_decode_paged_cuda(q[s], kpool, vpool, tables[s], lengths[s], window=700),
+            paged[s])
+
+
+@pytest.mark.cuda
+def test_split_decode_never_synchronizes_the_host(cuda):
+    """The grid is sized from the host-known split count: neither wrapper
+    reads ``lengths`` (or anything else) back to the host."""
+    q, k, v, kpool, vpool, tables, lengths = _decode_case(
+        cuda, 8, 2048, 1, 10, 256, 64, torch.bfloat16, [37, 1500] + [2048] * 6, seed=9)
+    dec.flash_decode_cuda(q, k, v, lengths, bk=64)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = dec.flash_decode_cuda(q, k, v, lengths, bk=64)
+        b = dec.flash_decode_paged_cuda(q, kpool, vpool, tables, lengths)
+        c = attn_ops.decode_attention_paged(q, kpool, vpool, tables, lengths, window=100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(c.float()).all())
 
 
 def _scan_inputs(B, T, D, gen, dev):
