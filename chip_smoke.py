@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --decode    # the decode-attention checks alone
+    python3 chip_smoke.py --conv      # the CONV pass alone (phase 5)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -36,14 +37,19 @@ result.  Phases, any failure of which exits non-zero:
 5. the paper's CONV nest: every CONV layer of AlexNet, VGG-16 and
    GoogLeNet (``core/networks.py``) at their published shapes and the
    paper's batch of 16, random bf16 inputs from a seeded generator, through
-   ``kernels.conv2d.ops.conv2d``; the stride-1 layers run the CUDA kernel
-   with the tile the blocking search picks for the H100 (the kernel's
-   launch count over the phase must be one per stride-1 layer), the two
-   strided first layers the plain oracle, as the reference routes them.
-   Each kernel result is held against the plain version; per distinct
-   shape the search's tile and seconds, the kernel's median time with a
-   cold L2, its TFLOP/s, the bound, the plain version's time and cuDNN's
-   (``F.conv2d`` on channels_last tensors, TF32 off) are printed;
+   ``kernels.conv2d.ops.conv2d``; the stride-1 layers run the CUDA kernel's
+   tensor-core body (a TMA ring feeding ``wgmma``) with the tile the
+   blocking search picks on ``hw.hopper_levels()`` and ``hw.hopper_array()``
+   (the kernel's launch count over the phase must be one per stride-1
+   layer), the two strided first layers the plain oracle, as the reference
+   routes them.  Each kernel result is held against the plain version and
+   a repeat call must be bitwise equal; per distinct shape the search's
+   schedule (every level's factors and the array's unrolling) beside the
+   kernel tile, its output-tile utilization, ring stages, shared memory and
+   grid, the search's seconds, the kernel's median time with a cold L2 (and
+   of it the wrapper's padding for TMA where C or K needs it), its TFLOP/s,
+   the bound, the plain version's time and cuDNN's (``F.conv2d`` on
+   channels_last tensors, TF32 off) are printed;
 6. RWKV-6 at full width (rwkv6-1.6b: 24 layers, d_model 2048, 32 WKV
    heads of 64, bf16, random weights from a seeded generator, with a
    seeded data-dependent decay: ``w0`` spread over [-6, -1] and
@@ -107,7 +113,7 @@ result.  Phases, any failure of which exits non-zero:
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
 bound, the plain version and SDPA), prints their rows as JSON and stops:
-no ``ok`` line.
+no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way.
 """
 
 from __future__ import annotations
@@ -863,12 +869,23 @@ def conv_layers() -> list[tuple]:
     return out
 
 
+def schedule_text(choice) -> str:
+    """The search's schedule for one layer: each level's factors (REG, SMEM,
+    L2, HBM, the ones above 1) and the array's unrolling."""
+    sch = choice.report.schedule
+    levels = [f"{lv.name} " + (" ".join(f"{d}{sch.tiling[d][i]}" for d in sch.nest.dims
+                                        if sch.tiling[d][i] > 1) or "-")
+              for i, lv in enumerate(sch.levels)]
+    array = " | ".join(" ".join(f"{d}{f}" for d, f in a) or "-" for a in sch.spatial)
+    return f"{' / '.join(levels)}; array {array}"
+
+
 def conv_phase(totals: dict, results: dict) -> dict:
     """Phase 5 of the module docstring."""
     layers = conv_layers()
     shapes: dict[tuple, dict] = {}
-    print("-- tiles from the blocking search on the (SMEM, HBM) hierarchy (set-up, "
-          "outside every timed window)", flush=True)
+    print("-- tiles from the blocking search on hw.hopper_levels() and hw.hopper_array() "
+          "(set-up, outside every timed window)", flush=True)
     for net, name, stride, b in layers:
         key = (b["X"], b["Y"], b["C"], b["K"], b["FX"], b["FY"])
         if stride != 1:
@@ -877,13 +894,24 @@ def conv_phase(totals: dict, results: dict) -> dict:
             shapes[key]["layers"].append(f"{net}/{name}")
             continue
         t0 = time.perf_counter()
-        tiles = convops.choose_conv_blocks(CONV_BATCH, *key)
+        choice = convops.conv_search(CONV_BATCH, *key)
         secs = time.perf_counter() - t0
-        shapes[key] = dict(layers=[f"{net}/{name}"], tiles=tiles, search_s=secs)
-        print(f"{net}/{name} X=Y={b['X']} C={b['C']} K={b['K']} F={b['FX']}x{b['FY']}: "
-              f"tile (bx,by,bc,bk)=({tiles.bx},{tiles.by},{tiles.bc},{tiles.bk}), "
-              f"search {secs:.3f} s, smem {tiles.smem_bytes(b['FX'], b['FY'])} B, "
-              f"{tiles.warp_tiles()} warp tiles", flush=True)
+        tiles = choice.tiles
+        if convops.choose_conv_blocks(CONV_BATCH, *key) != tiles:
+            fail(f"{net}/{name}: the entry point's tile is not the search's")
+        X, Y, K = b["X"], b["Y"], b["K"]
+        ntiles = tiles.grid(CONV_BATCH, X, Y, K)
+        shapes[key] = dict(
+            layers=[f"{net}/{name}"], tiles=tiles, search_s=secs, schedule=schedule_text(choice),
+            utilization=tiles.utilization(CONV_BATCH, X, Y, K), stages=tiles.stages,
+            smem=tiles.ring_bytes(b["FX"], b["FY"]), tiles_n=ntiles,
+            blocks=min(ntiles, torch.cuda.get_device_properties(0).multi_processor_count))
+        sh = shapes[key]
+        print(f"{net}/{name} X=Y={X} C={b['C']} K={K} F={b['FX']}x{b['FY']}: search "
+              f"{sh['schedule']} -> tile (nb,bx,by,bc,bk)=({tiles.nb},{tiles.bx},{tiles.by},"
+              f"{tiles.bc},{tiles.bk}), utilization {sh['utilization']:.3f}, {tiles.stages} "
+              f"stages, smem {sh['smem']} B, {ntiles} tiles on {sh['blocks']} blocks, search "
+              f"{secs:.3f} s", flush=True)
 
     g = torch.Generator(device=DEV).manual_seed(7)
     data = []
@@ -914,7 +942,8 @@ def conv_phase(totals: dict, results: dict) -> dict:
           f"{launches['conv2d']} times ({n_stride1} stride-1 layers x 1)", flush=True)
 
     print("-- each layer against the plain version (tolerance per element: one bf16 ulp "
-          "of the element + 1e-3 of the output's max |value|)", flush=True)
+          "of the element + 1e-3 of the output's max |value|) and a repeat call, bitwise",
+          flush=True)
     max_err = 0.0
     for (x, w), out, (net, name, stride, b) in zip(data, outs, layers):
         shape = (CONV_BATCH, b["X"], b["Y"], b["K"])
@@ -924,7 +953,8 @@ def conv_phase(totals: dict, results: dict) -> dict:
             print(f"{net}/{name}: routed to plain (stride {stride})", flush=True)
             continue
         key = (b["X"], b["Y"], b["C"], b["K"], b["FX"], b["FY"])
-        want = conv.conv2d_plain(x, w, shapes[key]["tiles"]).float()
+        tiles = shapes[key]["tiles"]
+        want = conv.conv2d_plain(x, w, tiles).float()
         err = (out.float() - want).abs()
         # both sum in fp32 in other orders and round once to bf16
         ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
@@ -933,8 +963,11 @@ def conv_phase(totals: dict, results: dict) -> dict:
         if n_bad:
             fail(f"conv {net}/{name}: {n_bad} elements beyond tolerance "
                  f"(max |diff| {float(err.max()):.3e})")
+        if not torch.equal(conv.conv2d_cuda(x, w, tiles), out):
+            fail(f"conv {net}/{name}: a repeat call is not bitwise equal")
         max_err = max(max_err, float(err.max()))
-        print(f"{net}/{name}: max |diff| {float(err.max()):.3e}, within tolerance", flush=True)
+        print(f"{net}/{name}: max |diff| {float(err.max()):.3e}, within tolerance; repeat "
+              f"bitwise", flush=True)
         del want, err, ulp, tol
     del outs
 
@@ -961,14 +994,19 @@ def conv_phase(totals: dict, results: dict) -> dict:
                 time_samples(lambda xn=xn, wn=wn: torch.nn.functional.conv2d(xn, wn))),
             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
         )
+        if (b["C"] % 8 or b["C"] < tiles.bc or b["K"] % 8
+                or b["K"] < hw.CONV_PANEL):  # the wrapper pads x or w for TMA
+            sh["pad_ms"] = statistics.median(
+                time_samples(lambda x=x, w=w, t=tiles: conv._pad_for_tma(x, w, t.bc)))
         sh["tflops"] = flops / sh["ms"] / 1e9
         rows.append(dict(shape=dict(X=b["X"], Y=b["Y"], C=b["C"], K=b["K"], FX=b["FX"],
                                     FY=b["FY"]),
                          tiles=dataclasses.asdict(tiles),
                          **{k: v for k, v in sh.items() if k != "tiles"}))
+        pad = f" (of it the wrapper's pad for TMA {sh['pad_ms']:.4f})" if "pad_ms" in sh else ""
         print(f"{','.join(sh['layers'])} (X=Y={b['X']} C={b['C']} K={b['K']} "
-              f"F={b['FX']}x{b['FY']}): tile ({tiles.bx},{tiles.by},{tiles.bc},{tiles.bk}) "
-              f"search {sh['search_s']:.3f} s; ms={sh['ms']:.4f} ({sh['tflops']:.1f} TFLOP/s) "
+              f"F={b['FX']}x{b['FY']}): tile ({tiles.nb},{tiles.bx},{tiles.by},{tiles.bc},"
+              f"{tiles.bk}) x{tiles.stages}; ms={sh['ms']:.4f}{pad} ({sh['tflops']:.1f} TFLOP/s) "
               f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={sh['plain_ms']:.4f} "
               f"library_ms={sh['library_ms']:.4f}", flush=True)
     del data
@@ -1603,8 +1641,16 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     print(f"device {name}, torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    print("== kernels against their plain versions", flush=True)
     results: dict = {}
+    if sys.argv[1:] == ["--conv"]:
+        # the CONV pass alone: phase 5
+        print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
+        convs = conv_phase({n: 0 for n in WRAPPERS}, results)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"conv": {"pass": results["conv2d"], **convs}}))
+        return
+    print("== kernels against their plain versions", flush=True)
     check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
                  [0, 1, 17, 100, 255, 300, 777, 1024])
     if sys.argv[1:] == ["--decode"]:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -78,8 +78,10 @@ def _tile_choices(
     capacity_words: int | None,
     double: bool,
     max_choices: int,
+    keep: Callable[[dict[str, int]], bool] | None = None,
 ) -> list[dict[str, int]]:
-    """Enumerate per-dim divisor factors whose cumulative footprint fits."""
+    """Enumerate per-dim divisor factors whose cumulative footprint fits
+    (and that ``keep`` accepts, before any subsampling)."""
     dims = sorted(rem, key=lambda d: -rem[d])
     out: list[dict[str, int]] = []
 
@@ -102,6 +104,8 @@ def _tile_choices(
         tile.pop(d, None)
 
     rec(0, {})
+    if keep is not None:
+        out = [t for t in out if keep(t)]
     if len(out) > max_choices:
         # stratified subsample by footprint: keep spread from tiny to full
         out.sort(key=footprint)
@@ -166,6 +170,7 @@ def search_blocking(
     array: ArraySpec,
     dataflow: Dataflow,
     beam: int = 24,
+    tile_filter: Callable[[int, dict[str, int], dict[str, int]], bool] | None = None,
 ) -> SearchResult:
     """Top-down beam search with exact partial costs.
 
@@ -184,6 +189,14 @@ def search_blocking(
     already-fixed cost plus an optimistic remainder (sound per-level traffic
     lower bounds + MAC energy) exceed it are skipped.  At most
     ``MAX_CHOICES_PER_LEVEL`` tiles are tried per level.
+
+    ``tile_filter`` (not in the reference; None leaves every result as the
+    reference's) describes a kernel's own limits to the search: called as
+    ``tile_filter(l, factors, inner)`` with the factors a level-``l`` tile
+    takes and the remainder left for the levels inside it, it refuses the
+    tile by returning False, as a capacity check does (before the
+    ``MAX_CHOICES_PER_LEVEL`` subsample, so a kernel's few legal tiles are
+    never sampled away).
     """
     L = len(levels)
     levels = tuple(levels)
@@ -329,14 +342,21 @@ def search_blocking(
     _tile_cache: dict[tuple, list] = {}
     _foot_cache: dict[tuple, int] = {}
 
-    def tiles_for(rem: dict[str, int]) -> list:
+    def tiles_for(rem: dict[str, int], l: int) -> list:
         key = tuple(rem[d] for d in dims)
+        keep = None
+        if tile_filter is not None:
+            key = (l, key)
+
+            def keep(tile: dict[str, int]) -> bool:
+                full = {d: tile.get(d, 1) for d in dims}
+                return tile_filter(l, full, {d: rem[d] // full[d] for d in dims})
         got = _tile_cache.get(key)
         if got is None:
             base = {d: 1 for d in dims}
             got = []
             for tile in _tile_choices(
-                nest, rem, base, None, False, MAX_CHOICES_PER_LEVEL
+                nest, rem, base, None, False, MAX_CHOICES_PER_LEVEL, keep
             ):
                 tile_vec = np.array(
                     [tile.get(d, 1) for d in dims], dtype=np.int64
@@ -398,7 +418,7 @@ def search_blocking(
                 lb_here = (
                     lb_level(l, rem, rvec) if incumbent != math.inf else 0.0
                 )
-                for tile_vec, tile_rvec, active, new_rem, rem_key in tiles_for(rem):
+                for tile_vec, tile_rvec, active, new_rem, rem_key in tiles_for(rem, l):
                     # child tile (everything still inside) must fit level l-1
                     if child_cap_words is not None:
                         words = child_words(child_is_shared, new_rem, rem_key)

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at
 the root of the checkout on first use.  A library's file name carries a
-hash of its source, so an edited kernel is rebuilt and a stale one never
-loads.  :func:`build_all` starts one ``nvcc`` per source at once.
-Nothing is built when this module is imported.
+hash of its source and of the headers it includes (``csrc/*.cuh``), so an
+edited kernel or header is rebuilt and a stale one never loads.
+:func:`build_all` starts one ``nvcc`` per source at once.  Nothing is built
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,10 +47,29 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: set[Path] | None = None) -> list[Path]:
+    """``path`` and every file it includes with quotes, found beside it,
+    recursively, each once."""
+    seen = set() if seen is None else seen
+    if path in seen:
+        return []
+    seen.add(path)
+    out = [path]
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.exists():
+            out += _sources(dep, seen)
+    return out
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC / f"{name}.cu"):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> subprocess.Popen | None:

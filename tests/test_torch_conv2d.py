@@ -151,14 +151,65 @@ def _stride1_layers():
 @pytest.mark.parametrize("shape", list(_stride1_layers()), ids=list(_stride1_layers().values()))
 def test_hopper_tiles_of_every_cnn_layer_fit_the_kernel(shape):
     """The tile the search picks on the H100's hierarchy, at the layer's
-    full size, is one the kernel takes: bc and bk multiples of the MMA
-    alignment, within shared memory's budget and the block's accumulator
-    tiles, and no side past its extent (rounded up to the alignment)."""
+    full size and the paper's batch of 16, is one the tensor-core body
+    takes: at most 128 pixels a block, a 16-, 32- or 64-channel step (one
+    TMA swizzle span), whole 64-column filter panels up to 256, no side
+    past its extent, 2-4 ring stages within a block's shared memory, the
+    accumulators and a tap's A fragments within a thread's registers.  It
+    is the search's own tile (the entry point adds nothing), and the MMAs
+    compute at most a third more outputs than the layer has: the
+    output-tile utilization, over the whole layer with its ragged edge
+    tiles, is at least 0.75."""
     X, Y, C, K, FX, FY = shape
+    choice = tops.conv_search(16, X, Y, C, K, FX, FY)
     t = tops.choose_conv_blocks(16, X, Y, C, K, FX, FY)
-    assert t.bc % hw.MMA_ALIGN == 0 and t.bk % hw.MMA_ALIGN == 0
-    assert t.bc <= -(-C // 16) * 16 and t.bk <= -(-K // 16) * 16
-    assert 1 <= t.bx <= X and 1 <= t.by <= Y
-    assert t.smem_bytes(FX, FY) <= hw.SMEM_BUDGET_BYTES
+    assert t == choice.tiles
+    sch = choice.report.schedule
+    assert t.rows() == sch.used_pes() // hw.CONV_PANEL <= tconv.TC_ROWS
+    assert t.bc in tconv.TC_CHUNKS and t.bk % hw.CONV_PANEL == 0
+    assert hw.CONV_PANEL <= t.bk <= min(hw.WGMMA_MAX_N, -(-K // 64) * 64)
+    assert 1 <= t.bx <= X and 1 <= t.by <= Y and 1 <= t.nb <= 16
+    assert hw.CONV_RING_STAGES[0] <= t.stages <= hw.CONV_RING_STAGES[1]
+    assert t.ring_bytes(FX, FY) <= hw.SMEM_PER_BLOCK_BYTES
+    assert t.data_regs() <= tconv.TC_DATA_REGS
+    assert t.utilization(16, X, Y, K) >= 0.75
+
+
+def test_search_sees_the_tensor_cores():
+    """What the description of the H100 changes: the search's register
+    tile is whole 64-column panels (the old (SMEM, HBM) pair gave K factors
+    of 4-16, which the kernel padded to a warp tile of 32), small images
+    share a block (batch in the array's rows), and the grid never splits C
+    (the reduction stays in one block) or the filter window."""
+    ch = tops.conv_search(16, 7, 7, 192, 384, 3, 3)
+    sch = ch.report.schedule
+    assert ch.tiles.nb > 1 and sch.spatial_factor("B") == ch.tiles.nb
+    for X, C, K, F in [(56, 256, 256, 3), (14, 512, 512, 3), (13, 384, 256, 3)]:
+        sch = tops.conv_search(16, X, X, C, K, F, F).report.schedule
+        top = len(sch.levels) - 1
+        assert sch.tiling["C"][top] == sch.tiling["FX"][top] == sch.tiling["FY"][top] == 1
+        assert sch.cum_tile(1, include_spatial=True)["K"] >= hw.CONV_PANEL
+
+
+def test_fp32_tiles_keep_the_cuda_core_search():
+    """The fp32 body's tile comes from the (shared memory, HBM) search in
+    4-byte words, rounded to 16 and fitted to its warp tiles and budget."""
+    t = tops.choose_conv_blocks(16, 13, 13, 256, 384, 3, 3, word_bytes=4)
+    assert t.nb == 1 and t.bc % hw.MMA_ALIGN == 0 and t.bk % hw.MMA_ALIGN == 0
     assert t.warp_tiles() <= tconv.MAX_WARP_TILES
-    assert 2 * (t.smem_bytes(FX, FY) + hw.SMEM_RESERVED_PER_BLOCK_BYTES) <= hw.SMEM_PER_SM_BYTES
+    assert t.smem_bytes(3, 3, 4) <= hw.SMEM_BUDGET_BYTES
+
+
+def test_tile_filter_none_leaves_the_search_as_it_was():
+    """The core copy's optional tile filter: None (the default) and a
+    filter that keeps everything give the same search."""
+    from repro_torch.core.blocking import search_blocking
+    from repro_torch.core.dataflow import Dataflow
+    from repro_torch.core.loopnest import conv_nest
+    from repro_torch.core.schedule import ArraySpec
+
+    nest = conv_nest("c", B=1, K=256, C=128, X=14, Y=14, FX=3, FY=3)
+    args = (nest, hw.hopper_f32_levels(), ArraySpec(dims=(1,)), Dataflow(assigns=((),)))
+    a = search_blocking(*args, beam=8)
+    b = search_blocking(*args, beam=8, tile_filter=lambda level, f, inner: True)
+    assert a.best.schedule == b.best.schedule and a.best.energy_pj == b.best.energy_pj

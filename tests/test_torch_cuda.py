@@ -13,9 +13,12 @@ scale); the GEMM to one bf16 ulp of the output's scale.  Paged decode equals con
 checksum GEMM's product equals the GEMM's bitwise; its checksums are held
 to the plain version's within the ABFT tolerance
 ``ABFT_ATOL + ABFT_RTOL * (e^T|A|)|B|`` (fp32 sums in other orders) and
-repeat bit for bit.  The conv2d kernel is held to its plain version within
-one bf16 ulp of each element plus 1e-3 of the output's largest magnitude
-(both sum in fp32, in other orders, and round once).  The WKV-6 kernel is
+repeat bit for bit.  The conv2d kernel (bf16: a TMA ring feeding wgmma) is
+held to its plain version within one bf16 ulp of each element plus 1e-3 of
+the output's largest magnitude (both sum in fp32, in other orders, and
+round once), on the reference's grid, C = 3 and K = 5 (padded for TMA),
+each distinct CONV layer of the paper at batch 2, repeats bitwise, one
+launch a call, misaligned operands refused.  The WKV-6 kernel is
 held to its plain version within 1e-5 of the output's (and the state's)
 largest magnitude: both run in fp32, the kernel's sum over the key index in
 one fixed order with fused multiply-adds, the plain version's through an
@@ -377,8 +380,10 @@ def _conv_tol(want):
     (2, 17, 19, 40, 72, 5, 5, None),                  # 5x5, ragged C and K
     (1, 16, 20, 32, 48, 3, 1, None),                  # non-square filters
     (1, 20, 16, 32, 48, 1, 3, None),
-    (1, 13, 11, 24, 40, 3, 2, (4, 5, 16, 32)),        # Ho, Wo not tile multiples
-    (3, 9, 9, 96, 256, 3, 3, (7, 7, 32, 128)),
+    (1, 13, 11, 24, 40, 3, 2, (4, 5, 16, 64, 1, 2)),  # Ho, Wo not tile multiples
+    (3, 9, 9, 96, 256, 3, 3, (7, 7, 16, 128, 2, 3)),  # two images a block, 3 stages
+    (2, 12, 12, 200, 320, 1, 1, (5, 10, 64, 192, 1, 2)),  # 128-byte swizzle, 3 panels
+    (2, 12, 12, 200, 320, 1, 1, (5, 10, 32, 256, 1, 2)),  # 64-byte swizzle, 4 panels
 ])
 def test_conv2d_kernel_matches_plain(cuda, B, H, W, C, K, FX, FY, tiles):
     g = torch.Generator(device=cuda).manual_seed(B * H + C + K + FX * 7 + FY)
@@ -466,16 +471,75 @@ def test_conv2d_fp32_tiles_fit_and_match_plain(cuda, C, K, F, X):
 
 @pytest.mark.cuda
 def test_conv2d_refused_launch_raises(cuda):
-    """A tile whose shared memory is past the 227 KB a block may have is
-    refused at launch: the wrapper raises instead of returning garbage."""
+    """A tile whose ring is past the 227 KB a block may have is refused at
+    launch: the wrapper raises instead of returning garbage; a tile the
+    kernel cannot take at all (more pixels than the block's 128 rows, or
+    more accumulator and A registers than a thread has) raises before the
+    launch."""
     x = torch.zeros((1, 40, 40, 512), dtype=torch.bfloat16, device=cuda)
-    w = torch.zeros((5, 5, 512, 128), dtype=torch.bfloat16, device=cuda)
-    t = cv.ConvTiles(1, 1, 512, 128)
-    assert t.smem_bytes(5, 5) > hw.SMEM_PER_BLOCK_BYTES
+    w = torch.zeros((5, 5, 512, 256), dtype=torch.bfloat16, device=cuda)
+    t = cv.ConvTiles(8, 8, 32, 256, 1, 2)
+    assert t.ring_bytes(5, 5) > hw.SMEM_PER_BLOCK_BYTES
     with pytest.raises(RuntimeError):
         cv.conv2d_cuda(x, w, t)
-    with pytest.raises(ValueError):  # more accumulator tiles than the block holds
-        cv.conv2d_cuda(x, w, cv.ConvTiles(16, 17, 16, 64))
+    with pytest.raises(ValueError):  # more pixels than the block's rows
+        cv.conv2d_cuda(x, w, cv.ConvTiles(16, 17, 16, 64, 1, 2))
+    big = cv.ConvTiles(4, 4, 64, 256, 1, 2)  # 128 accumulators + 16 A registers
+    assert big.data_regs() > cv.TC_DATA_REGS
+    with pytest.raises(ValueError):
+        cv.conv2d_cuda(x, w[:1, :1].contiguous(), big)
+
+
+def _paper_shapes():
+    from repro_torch.core import networks
+    out = {}
+    for net in ("alexnet", "vgg16", "googlenet"):
+        for n in getattr(networks, net)(16):
+            b = n.bounds
+            if b["X"] > 1 and n.tensor("I").coupled["X"][1] == 1:
+                out.setdefault((b["X"], b["Y"], b["C"], b["K"], b["FX"], b["FY"]),
+                               f"{net}/{n.name}")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(_paper_shapes()), ids=list(_paper_shapes().values()))
+def test_conv2d_paper_shapes_at_batch_2(cuda, shape):
+    """Each distinct stride-1 CONV layer of the paper's CNNs at batch 2,
+    through ``ops.conv2d`` on the tile the search picks for it: one launch
+    a call, within one bf16 ulp + 1e-3 of scale of the plain version, a
+    repeat bitwise equal."""
+    X, Y, C, K, FX, FY = shape
+    g = torch.Generator(device=cuda).manual_seed(X + C + K)
+    x = _randn((2, X + FX - 1, Y + FY - 1, C), g, cuda)
+    w = _randn((FX, FY, C, K), g, cuda)
+    cv.conv2d_cuda.launches = 0
+    got = convops.conv2d(x, w)
+    assert cv.conv2d_cuda.launches == 1
+    again = convops.conv2d(x, w)
+    torch.cuda.synchronize()
+    assert cv.conv2d_cuda.launches == 2 and torch.equal(got, again)
+    want = cv.conv2d_plain(x, w, convops.choose_conv_blocks(2, X, Y, C, K, FX, FY)).float()
+    assert bool(((got.float() - want).abs() <= _conv_tol(want)).all())
+
+
+@pytest.mark.cuda
+def test_conv2d_refuses_misaligned_operands(cuda):
+    """TMA reads 16-byte aligned tensors: a bf16 operand whose data starts
+    2 bytes into its storage is refused, never sent to the plain version."""
+    n = 2 * 9 * 9 * 16
+    base = torch.zeros(n + 8, dtype=torch.bfloat16, device=cuda)
+    x = base[1: n + 1].view(2, 9, 9, 16)
+    w = torch.zeros((3, 3, 16, 64), dtype=torch.bfloat16, device=cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    t = convops.choose_conv_blocks(2, 7, 7, 16, 64, 3, 3)
+    cv.conv2d_cuda.launches = 0
+    with pytest.raises(ValueError):
+        cv.conv2d_cuda(x, w, t)
+    wb = torch.zeros(3 * 3 * 16 * 64 + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        cv.conv2d_cuda(x.clone(), wb[1: 3 * 3 * 16 * 64 + 1].view(3, 3, 16, 64), t)
+    assert cv.conv2d_cuda.launches == 0
 
 
 def _wkv_inputs(B, H, T, gen, dev, bthd=False):
