@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --decode    # the decode-attention checks alone
     python3 chip_smoke.py --conv      # the CONV pass alone (phase 5)
+    python3 chip_smoke.py --flash     # flash attention alone (phase 8 (a, b))
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -97,12 +98,16 @@ result.  Phases, any failure of which exits non-zero:
    1024-token cache (the dynamic one) -- with the kernel's launch count
    over the phase equal to the calls; (b) each case against the plain
    version, each (b, t, head) row within 1e-2 of its own norm, a repeat
-   run bitwise, the
-   kernel's median time with a cold L2 beside the bound (4 d operations
-   per live (query, key) pair over 989 TFLOP/s, or the bytes), the plain
-   version's time and SDPA's with the same mask; (c) decode attention at
-   head_dim 16 and 240 in bf16 (bitwise, paged == contiguous) and in fp32
-   at smollm-360m's shape (within 1e-6 of scale), the GEMM and the checksum
+   run bitwise, the kernel's body and plan (tiles, ring stages, shared
+   memory), its median time with a cold L2 and TFLOP/s of live pairs
+   beside the bound (4 d operations per live (query, key) pair over 989
+   TFLOP/s, or the bytes), the plain version's time and SDPA's with the
+   same mask, and kernel/SDPA; (c) decode attention at head_dim 16 and 240
+   in bf16 (bitwise, paged == contiguous) and in fp32 at smollm-360m's
+   shape (within 1e-6 of scale), flash attention in fp32 at smollm-360m's
+   prefill shape (each row within 1e-5 of its norm of the plain version,
+   beside SDPA in fp32 with TF32 off and the fp32 CUDA-core bound), the
+   GEMM and the checksum
    GEMM in fp32 at smollm-360m's decode shapes, one CONV layer in fp32 and
    WKV-6 at key/value head sizes (16, 16) and (32, 64), each against its
    plain version, with its times;
@@ -113,7 +118,8 @@ result.  Phases, any failure of which exits non-zero:
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
 bound, the plain version and SDPA), prints their rows as JSON and stops:
-no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way.
+no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way,
+``--flash`` phase 1 and phase 8 (a, b).
 """
 
 from __future__ import annotations
@@ -1330,6 +1336,7 @@ def rg_phase(totals: dict, results: dict) -> dict:
 # ---------------------------------------------------- flash-attention phase --
 
 FLASH_TOL = 1e-2  # of each (b, t, head) row's norm (bf16 p and output)
+FLASH_F32_TOL = 1e-5  # the same in fp32 (sums in another order)
 
 
 def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1432,8 +1439,10 @@ def flash_phase(totals: dict, results: dict) -> None:
         lib_err = float((lib_out.float() - want.float()).abs().max())
         lib_rel = row_rel_err(lib_out, want)
         del lib_out
+        pl = fa.plan(d)
         row = dict(
-            case=name, shape=shape, live_pairs=live_pairs, max_abs_err=err,
+            case=name, shape=shape, body=fa.body(d, q.dtype), plan=dataclasses.asdict(pl),
+            live_pairs=live_pairs, max_abs_err=err,
             max_row_rel_err=rel, row_rel_tolerance=FLASH_TOL,
             ms=statistics.median(time_samples(lambda q=q, k=k, v=v, kw=kw:
                                               attn_ops.flash_attention(q, k, v, **kw))),
@@ -1444,10 +1453,13 @@ def flash_phase(totals: dict, results: dict) -> None:
             bound_ms=b_ms, bound_by=b_by, flops=4.0 * d * live_pairs, bytes=nbytes,
         )
         row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row["kernel_over_library"] = row["ms"] / row["library_ms"]
         rows.append(row)
-        print(f"flash_attention {name} ({shape}): max_abs_err={err:.3e} row error "
-              f"{rel:.3e} of its norm (tol {FLASH_TOL}), repeat bitwise; "
-              f"ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) bound_ms={b_ms:.4f} "
+        print(f"flash_attention {name} ({shape}): body {row['body']}, plan bq={pl.bq} "
+              f"bkv={pl.bkv} stages={pl.stages} smem={pl.smem} B; max_abs_err={err:.3e} "
+              f"row error {rel:.3e} of its norm (tol {FLASH_TOL}), repeat bitwise; "
+              f"ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s, "
+              f"{row['kernel_over_library']:.2f}x SDPA) bound_ms={b_ms:.4f} "
               f"({b_by}, {row['flops'] / 1e9:.1f} GFLOP of {live_pairs} live pairs) plain_ms={row['plain_ms']:.3f} "
               f"library_ms={row['library_ms']:.4f} (SDPA, {'causal' if causal else 'mask'}; "
               f"|SDPA - plain| {lib_err:.3e}, row error {lib_rel:.3e})", flush=True)
@@ -1481,10 +1493,55 @@ def check_decode_widened(results: dict) -> None:
                  dtype=torch.float32)
 
 
+def check_flash_fp32(results: dict) -> None:
+    """Phase 8 (c) for flash attention: the fp32 body at smollm-360m's
+    prefill shape, against its plain version and SDPA in fp32."""
+    name, B, Tq, Tk, KV, G, d, kw = flash_cases()[0]
+    print(f"-- flash attention in fp32 at {name} (each row within {FLASH_F32_TOL} of its "
+          f"norm; SDPA in fp32, TF32 off)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=DEV).manual_seed(15)
+    q, k, v = (torch.randn(s, generator=g, device=DEV)
+               for s in ((B, Tq, KV, G, d), (B, Tk, KV, d), (B, Tk, KV, d)))
+    got = attn_ops.flash_attention(q, k, v, **kw)
+    again = attn_ops.flash_attention(q, k, v, **kw)
+    want = attn_ops.flash_attention(q, k, v, impl="plain", **kw)
+    torch.cuda.synchronize()
+    rel = row_rel_err(got, want)
+    if not (rel <= FLASH_F32_TOL and torch.equal(got, again)):
+        fail(f"fp32 flash_attention {name}: row error {rel:.3e} (tol {FLASH_F32_TOL}), "
+             f"repeat bitwise {torch.equal(got, again)}")
+    live_pairs = int(flash_live(Tq, Tk, kw).sum()) * B * KV * G
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(nbytes, 4.0 * d * live_pairs, hw.FP32_FLOPS_PER_S)
+    qh = q.reshape(B, Tq, KV * G, d).transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                                enable_gqa=True)
+
+    lib_rel = row_rel_err(lib().transpose(1, 2).reshape(q.shape), want)
+    results["flash_attention_fp32"] = row = dict(
+        case=name, body=fa.body(d, q.dtype), max_abs_err=float((got - want).abs().max()),
+        max_row_rel_err=rel, row_rel_tolerance=FLASH_F32_TOL,
+        ms=statistics.median(time_samples(lambda: attn_ops.flash_attention(q, k, v, **kw))),
+        plain_ms=time_ms(lambda: attn_ops.flash_attention(q, k, v, impl="plain", **kw),
+                         iters=3),
+        library_ms=statistics.median(time_samples(lib)), library_row_rel_err=lib_rel,
+        bound_ms=b_ms, bound_by=b_by, flops=4.0 * d * live_pairs)
+    print(f"fp32 flash_attention {name}: body {row['body']}, row error {rel:.3e} (tol "
+          f"{FLASH_F32_TOL}), repeat bitwise; ms={row['ms']:.4f} "
+          f"({row['flops'] / row['ms'] / 1e9:.1f} TFLOP/s) plain_ms={row['plain_ms']:.3f} "
+          f"library_ms={row['library_ms']:.4f} (SDPA fp32, {row['ms'] / row['library_ms']:.2f}x; "
+          f"row error {lib_rel:.3e}) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+
+
 def check_widened(results: dict) -> None:
     """Phase 8 (c): each widened kernel at the dtypes and sizes it took on
     in this slice, against its plain version, with its times."""
     check_decode_widened(results)
+    check_flash_fp32(results)
 
     print("-- the GEMM and the checksum GEMM in fp32 at smollm-360m's five projection "
           "shapes, M = 8 (within 1e-5 of the output's scale; the checksum GEMM's product "
@@ -1649,6 +1706,15 @@ def main() -> None:
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"conv": {"pass": results["conv2d"], **convs}}))
+        return
+    if sys.argv[1:] == ["--flash"]:
+        # flash attention alone: phase 8 (a, b)
+        print("== flash attention at full width", flush=True)
+        totals = {n: 0 for n in WRAPPERS}
+        flash_phase(totals, results)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"flash": results["flash_attention"]}))
         return
     print("== kernels against their plain versions", flush=True)
     check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,

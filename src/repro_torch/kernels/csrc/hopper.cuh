@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tensor maps and loads, wgmma fences, descriptors and the m64nNk16 bf16
-// products with A in registers.  Header only; every function is inline.
+// tensor maps and loads, wgmma fences, descriptors, the m64nNk16 bf16
+// products with A in registers or in shared memory, register reallocation
+// between warpgroups (setmaxnreg) and named barriers.  Header only; every
+// function is inline.
 //
 // Tensor maps are encoded on the host with cuTensorMapEncodeTiled, which
 // is a driver function: it is looked up once through the runtime's
@@ -87,8 +89,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 }
 
 // Wait until the barrier's phase of parity `parity` has completed.  A wait
-// that lasts ~2^24 polls (seconds) traps: a protocol fault ends the kernel
-// with an error instead of hanging the card.
+// that lasts ~2^24 polls (seconds) traps (TRAP = true): a protocol fault
+// ends the kernel with an error instead of hanging the card.  A kernel
+// whose warpgroups set their registers with setmaxnreg waits with TRAP =
+// false: with a trap anywhere in it, ptxas holds every warpgroup to the
+// launch bound's registers (168 at 384 threads), and the consumers spill.
+template <bool TRAP = true>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   for (uint32_t spins = 0;; ++spins) {
@@ -100,7 +106,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) return;
-    if (spins == (1u << 24)) __trap();
+    if (TRAP && spins == (1u << 24)) __trap();
   }
 }
 
@@ -124,6 +130,42 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA store of a box from shared memory at src (in the layout a load of
+// the same map writes there) to the tensor at the coordinates, clipped to
+// the tensor; it joins this thread's bulk async-group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are pending: READ, until
+// they have read their shared memory (it may be written again); else until
+// their writes are done.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's shared-memory writes before a later TMA (async
+// proxy) access to them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // The byte offset `a` (from a 1024-byte aligned base) as TMA's swizzle
@@ -164,6 +206,49 @@ template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Move this warpgroup's register limit to R a thread (a multiple of 8 in
+// [24, 256]).  All 128 threads of the warpgroup execute it together.
+// Kernels built for three warpgroups at 168 registers a thread (the
+// launch bound of 384 threads) give a producer 24 and two consumers 240:
+// (24 + 2 x 240) x 128 = 64,512 of the SM's 65,536.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `count` threads, a
+// multiple of 32: sync waits until `count` threads have arrived, arrive
+// counts this warp's threads and goes on.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Shared-memory descriptor of an operand stored K-major with the 128-byte
+// swizzle, as TMA writes a box of 64 bf16 columns of the reduction axis:
+// the operand's rows (M for A, N for B) 128 bytes apart, 8-row core
+// groups 1024 bytes apart (SBO); LBO is unused for a swizzled K-major
+// operand (CUTLASS sets it to 1).  A k16 step inside the 64-column panel
+// starts 32 bytes further on (the hardware applies the swizzle's XOR to
+// the address it computes); the next panel starts rows x 128 bytes on.
+// `addr` lies in a 1024-byte aligned swizzle atom (base offset 0).
+__device__ __forceinline__ uint64_t desc_k128(uint32_t addr) {
+  uint64_t d = 0;
+  d |= (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;  // 128-byte swizzle
+  return d;
 }
 
 // Shared-memory descriptor of a B operand stored N-major ("MN-major") with
@@ -271,6 +356,49 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d (64 x N fp32, the layout of wgmma_rs below) = a (64 x 16 bf16) * b (16
+// x N bf16), both in shared memory through desc_k128 descriptors, K-major
+// (imm-trans-a = imm-trans-b = 0): a's rows are M, b's rows are N, the
+// reduction axis contiguous in both.  scale_d = 0 overwrites d, 1 adds to
+// it.  N = 64 and 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace hopper

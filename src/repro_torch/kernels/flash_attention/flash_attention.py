@@ -9,9 +9,11 @@ head row, query tile) walking the key tiles in order.  q is a
 reference's flattened ``(B*KV*G, Tq, d)`` / ``(B*KV, Tk, d)`` rows, split
 into batch and head so that any strides serve and ``ops.flash_attention``
 passes its ``(B, T, KV, G, d)`` arrays without a copy; query head h reads
-K/V head ``h // G``.  It takes q, K and V all bf16 (tensor cores) or all
-fp32 (CUDA cores, full fp32), head_dim a multiple of 8 up to 256, and
-raises on anything else.
+K/V head ``h // G``.  It takes q, K and V all bf16 or all fp32, head_dim a
+multiple of 8 up to 256, and raises on anything else.  The kernel has two
+bodies, picked by the dtype alone (:func:`body`): bf16 runs the Hopper
+body (a TMA ring feeding ``wgmma`` on two consumer warpgroups, tiles from
+:func:`plan`), fp32 the CUDA-core body in full fp32.
 
 Which keys are visited follows the reference, since a query with no live
 key gets the mean of the visited V rows (every masked score is the finite
@@ -35,6 +37,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -46,7 +49,62 @@ MAX_HEAD_DIM = 256  # head_dim: a multiple of 8 up to this
 DTYPES = (torch.bfloat16, torch.float32)
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SIGS = {"flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 6 + [_F, _P]}
+_SIGS = {"flash_attention": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_I] * 6 + [_F, _P],
+         "flash_plan": [_I, _P]}
+
+# The bf16 body's budget (csrc/flash_attention.cu): 227 KB of dynamic
+# shared memory a block, three warpgroups of 128 threads whose registers
+# setmaxnreg moves from the producer (24 a thread) to the two consumers
+# (240 each), within the SM's 65,536.
+SMEM_LIMIT = 232448
+MAX_STAGES = 4
+BQ = 128
+PRODUCER_REGS, CONSUMER_REGS = 24, 240
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The bf16 body's tiles for one head_dim: ``bq`` queries a block (64
+    for each consumer warpgroup), ``bkv`` keys a ring stage, ``stages``
+    stages of (K, V), ``smem`` dynamic shared bytes."""
+
+    bq: int
+    bkv: int
+    stages: int
+    smem: int
+
+
+def plan(d: int) -> Plan:
+    """The bf16 body's plan for head_dim ``d``, from ``d`` alone (never the
+    lengths); ``csrc/flash_attention.cu``'s ``plan`` mirrors it.  Each
+    operand tile is ``ceil(d / 64)`` panels of 64 columns (128 bytes a
+    row, the 128-byte swizzle); 128 keys a stage while that is at most two
+    panels, 64 beyond (d = 256: Q 64 KB + 2 x (K 32 KB + V 32 KB)); as many
+    stages as fit, up to 4, beside the Q tile, 1024 bytes of alignment and
+    the barriers."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be a multiple of 8 up to {MAX_HEAD_DIM}: {d}")
+    dp = -(-d // 64)
+    bkv = 128 if dp <= 2 else 64
+    stage = 2 * dp * bkv * 128
+    fixed = dp * BQ * 128 + 1024 + 8 * (2 + 3 * MAX_STAGES)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    if stages < 2:
+        raise ValueError(f"head_dim {d}: the Q tile and two ring stages exceed "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return Plan(BQ, bkv, stages, fixed + stages * stage)
+
+
+def body(d: int, dtype: torch.dtype) -> str:
+    """Which body of the kernel a call runs, by (d, dtype) alone: "tma_wgmma"
+    for bf16 (every head_dim the kernel takes; raises on a plan that does
+    not fit), "f32_cuda_cores" for fp32."""
+    if dtype == torch.bfloat16:
+        plan(d)
+        return "tma_wgmma"
+    if dtype == torch.float32:
+        return "f32_cuda_cores"
+    raise ValueError(f"kernel takes bf16 or fp32, got {dtype}")
 
 
 def key_bounds(Tk: int, bk: int, kv_len: int | None) -> tuple[int, int]:
@@ -128,13 +186,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"must agree and the query heads be a multiple of the KV heads")
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"kernel takes head_dim a multiple of 8 up to {MAX_HEAD_DIM}: {d}")
-    # 16-byte loads of bf16 rows: every row must start on 16 bytes
+    # TMA reads bf16 rows: every row must start on 16 bytes, and the
+    # sequence axis cannot be a broadcast
     align = 16 // q.element_size() if q.dtype == torch.bfloat16 else 1
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head_dim axis must be contiguous: {t.stride()}")
         if any(s % align for s in t.stride()[:3]) or t.data_ptr() % (align * t.element_size()):
             raise ValueError(f"{name}'s rows must start on 16 bytes: strides {t.stride()}")
+        if align > 1 and t.shape[2] > 1 and t.stride(2) == 0:
+            raise ValueError(f"{name}'s sequence axis must not have stride 0: {t.stride()}")
 
 
 def flash_attention_cuda(
@@ -155,6 +216,7 @@ def flash_attention_cuda(
         return flash_attention_plain(q, k, v, bk=bk, causal=causal, window=window,
                                      q_offset=q_offset, kv_len=kv_len)
     _check(q, k, v)
+    body(q.shape[3], q.dtype)
     B, Hq, Tq, d = q.shape
     KV, Tk = k.shape[1], k.shape[2]
     if window is not None and window < 0:

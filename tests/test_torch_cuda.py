@@ -46,8 +46,15 @@ the GEMM's, rows independent of M), WKV-6 key and value head sizes of 16,
 go through the port's ``ops`` on CUDA tensors.  The flash-attention kernel
 is held to its plain version within 1e-5 of the output's scale in fp32 and
 1e-2 in bf16 (p rounded to bf16 in both, at scores from sums in other
-orders), its repeat runs bitwise.
+orders), its repeat runs bitwise.  Its bf16 body (a TMA ring feeding
+``wgmma``, tiles from ``flash_attention.plan``) is also sent head_dims 16
+to 256, up to 16 query heads per KV head, lengths that are no multiple of
+its tiles, windows narrower than a key tile, rows with no live key and
+views at any strides; the kernel's own plan equals the Python mirror.
 """
+
+import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -57,7 +64,7 @@ from repro_torch import hw
 from repro_torch.arch.layers import Dispatch
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.registry import get
-from repro_torch.kernels import abft
+from repro_torch.kernels import _build, abft
 from repro_torch.kernels.conv2d import conv2d as cv
 from repro_torch.kernels.conv2d import ops as convops
 from repro_torch.kernels.flash_attention import decode_attention as dec
@@ -980,3 +987,57 @@ def test_flash_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         attn_ops.flash_attention(wide[:, :, :, None].expand(1, 16, 1, 2, 264), wide, wide)
     with pytest.raises(ValueError):  # no CPU operand beside CUDA ones
         attn_ops.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 16])
+@pytest.mark.parametrize("d", [16, 40, 64, 128, 240, 256])
+def test_flash_attention_tma_body_edges(cuda, d, G):
+    """The bf16 body at each panel count of its plan: 200 queries (no
+    multiple of the 128-query tile) over 333 keys (no multiple of the
+    64- or 128-key tile), static and dynamic, causal and not, a window of
+    20 (narrower than a key tile) and a chunk whose rows have no live key
+    (each the mean of the 333 visited V rows)."""
+    KV = 2 if G == 1 else 1
+    q, k, v = _flash_inputs(cuda, 2, 200, 333, KV, G, d, torch.bfloat16, d + G)
+    _flash_check(q, k, v)
+    _flash_check(q, k, v, causal=False)
+    _flash_check(q, k, v, q_offset=133, kv_len=300, bk=48)
+    _flash_check(q, k, v, window=20, bk=32)
+    got = _flash_check(q, k, v, causal=False, window=5, q_offset=400, kv_len=333)
+    mean = v.float().mean(1)[:, None, :, None, :]
+    assert float((got.float() - mean).abs().max()) <= 1e-2 * float(mean.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_attention_tma_body_reads_any_strides(cuda, d):
+    """Tensor maps follow the views' strides: q and out-of-place k in
+    (B, H, T, d) order, v a slice of wider rows, k broadcast over the
+    batch (stride 0), each against the plain version on the same views."""
+    B, Hq, KV, Tq, Tk = 2, 6, 3, 150, 260
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q = torch.randn((B, Hq, Tq, d), generator=g, device=cuda).bfloat16()
+    k = torch.randn((1, KV, Tk, d), generator=g, device=cuda).bfloat16().expand(B, KV, Tk, d)
+    wide = torch.randn((B, Tk, KV, d + 64), generator=g, device=cuda).bfloat16()
+    v = wide[..., 16:16 + d].transpose(1, 2)
+    for kw in (dict(bk=64), dict(bk=32, window=40, q_offset=110, kv_len=250)):
+        fa.flash_attention_cuda.launches = 0
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        again = fa.flash_attention_cuda(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        assert fa.flash_attention_cuda.launches == 2 and torch.equal(got, again)
+        err = (got.float() - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+        assert float(err.max()) <= 1e-2, float(err.max())
+
+
+@pytest.mark.cuda
+def test_flash_attention_plan_matches_the_kernel(cuda):
+    """``flash_attention.plan`` is the kernel's own plan for every head_dim."""
+    lib = _build.library("flash_attention", fa._SIGS)
+    out = (ctypes.c_int * 4)()
+    for d in range(8, fa.MAX_HEAD_DIM + 1, 8):
+        assert lib.flash_plan(d, ctypes.addressof(out)) == 0
+        assert tuple(out) == dataclasses.astuple(fa.plan(d)), d
+    assert lib.flash_plan(12, ctypes.addressof(out)) != 0
