@@ -5,6 +5,8 @@
     python3 chip_smoke.py --decode    # the decode-attention checks alone
     python3 chip_smoke.py --conv      # the CONV pass alone (phase 5)
     python3 chip_smoke.py --flash     # flash attention alone (phase 8 (a, b))
+    python3 chip_smoke.py --gemm      # the GEMM checks of phase 2 alone
+    python3 chip_smoke.py --gemm --baseline OLD/matmul.cu   # ... beside another build
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -19,13 +21,17 @@ result.  Phases, any failure of which exits non-zero:
    a decode and a prefill M) and time kernel, plain version and one
    PyTorch library call, each with a cold L2 (for decode attention also
    the kernel/SDPA ratio, the grid, and each kernel phase's time from the
-   blocks' device-clock stamps);
+   blocks' device-clock stamps; the GEMMs' times are medians of 20
+   launches, beside each shape's plan -- body, tiles, K split, stages,
+   grid -- the kernel/library ratio and the wrapper's host microseconds a
+   call);
 3. serve full-width smollm-360m (32 layers, random weights from a seeded
    generator) through the port's ``Engine``: 16 requests, half of them
    sharing a 256-token prefix, up to 64 greedy tokens each, in four runs
    (contiguous and paged KV, each with ``matmul="xla"`` and ``"pallas"``).
    Each run's kernel launch counts are set to 0 just before it and read
-   just after; paged tokens must equal contiguous tokens;
+   just after; paged tokens must equal contiguous tokens; one profiled
+   decode step's card busy time and the GEMM kernel's share of it;
 4. the SDC defense (``KernelConfig(abft=...)``) at full width, paged KV:
    (a) the phase-3 workload with ``matmul="pallas"``, ``abft="checksum"``
    must serve the ABFT-off tokens with no detection, through the checksum
@@ -119,7 +125,12 @@ result.  Phases, any failure of which exits non-zero:
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
 bound, the plain version and SDPA), prints their rows as JSON and stops:
 no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way,
-``--flash`` phase 1 and phase 8 (a, b).
+``--flash`` phase 1 and phase 8 (a, b), ``--gemm`` phase 1 and the GEMM
+checks of phase 2.  ``--gemm --baseline FILE`` also builds FILE (another
+version of ``csrc/matmul.cu`` with the same C entry points, say the
+parent commit's) and times it beside this one on the same inputs, in turns
+(baseline, this, this, baseline), with the C entry point's host
+microseconds a call of each.
 """
 
 from __future__ import annotations
@@ -230,6 +241,8 @@ KERNEL_INFO = {
 # csrc/decode_attention.cu's decode_kernel, which splits the KV across a
 # cluster and replays the partials in the same launch)
 DECODE_KERNEL = "decode_kernel"
+# the name of the bf16 GEMM kernel (both bodies, with and without checksums)
+GEMM_KERNEL = "gemm_tc_kernel"
 # the five projection GEMMs of smollm-360m: (K, N, B transposed)
 GEMM_SHAPES = [(960, 960, False), (960, 320, False), (960, 2560, False),
                (2560, 960, False), (960, 49152, True)]
@@ -275,6 +288,25 @@ def time_samples(fn, iters: int = 20) -> list[float]:
 def time_ms(fn, iters: int = 20) -> float:
     """Mean of :func:`time_samples`."""
     return statistics.fmean(time_samples(fn, iters))
+
+
+def median_ms(fn, iters: int = 20) -> float:
+    """Median of :func:`time_samples`: one slow launch does not move it."""
+    return statistics.median(time_samples(fn, iters))
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (enqueue only: no
+    synchronisation inside the window), over ``calls`` calls after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = hw.BF16_FLOPS_PER_S) -> tuple[float, str]:
@@ -404,9 +436,84 @@ def check_decode(results: dict, B: int, KV: int, G: int, d: int, S: int, bk: int
             + f"; first entry to last exit {ph['span']:.2f}", flush=True)
 
 
-def check_gemm(results: dict, prefill_m: int) -> None:
+def plan_text(M: int, N: int, K: int, trans_b: bool) -> str:
+    p = mm.plan(M, N, K, trans_b)
+    return (f"plan {p.body} {p.bm}x{p.bn} split {p.split} stages {p.stages} grid {p.grid} "
+            f"smem {p.smem}")
+
+
+def baseline_library(path: str):
+    """Build another version of ``csrc/matmul.cu`` (the same C entry points)
+    with the port's nvcc flags into ``build/`` and load it."""
+    import ctypes
+    import hashlib
+
+    src = Path(path).resolve()
+    h = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    out = ROOT / "build" / "repro_torch" / f"libmatmul_baseline_{h}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    for fn in ("gemm", "gemm_abft"):
+        getattr(lib, fn).argtypes = mm._SIGS[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def against_baseline(base, a, b, trans_b: bool, abft_rows: int = 0) -> dict:
+    """The baseline library and this one on the same operands through their
+    C entry points: products within one bf16 ulp of each other's scale,
+    median device ms in turns (baseline, this, this, baseline) and host us
+    a call of each.  ``abft_rows``: the checksum GEMM with that many rows a
+    checksum block (else the GEMM)."""
+    M, K = a.shape
+    N = b.shape[0] if trans_b else b.shape[1]
+    new = _build.library("matmul", mm._SIGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+
+    def call(lib, tag):
+        out = outs.setdefault(tag, torch.empty((M, N), dtype=a.dtype, device=DEV))
+        if abft_rows:
+            chk = outs.setdefault(tag + "_checks", torch.empty(
+                (-(-M // abft_rows), N), dtype=torch.float32, device=DEV))
+            err = lib.gemm_abft(a.data_ptr(), b.data_ptr(), out.data_ptr(), chk.data_ptr(),
+                                M, N, K, int(trans_b), 0, stream)
+        else:
+            err = lib.gemm(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(trans_b), 0,
+                           stream)
+        _build.check(err, f"{tag} gemm")
+
+    old_fn, new_fn = (lambda: call(base, "baseline")), (lambda: call(new, "change"))
+    old_fn()
+    new_fn()
+    torch.cuda.synchronize()
+    diff = float((outs["baseline"].float() - outs["change"].float()).abs().max())
+    scale = float(outs["baseline"].float().abs().max())
+    if diff > 2.0**-7 * scale:
+        fail(f"gemm {M}x{K}x{N}: this build and the baseline differ by {diff:.3e}")
+    turns = [median_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+    hosts = [host_us(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+    return dict(baseline_ms=(turns[0] + turns[3]) / 2, change_ms=(turns[1] + turns[2]) / 2,
+                turns_ms=turns, baseline_host_us=(hosts[0] + hosts[3]) / 2,
+                change_host_us=(hosts[1] + hosts[2]) / 2, baseline_max_diff=diff)
+
+
+def _baseline_text(row: dict) -> str:
+    if "baseline_ms" not in row:
+        return ""
+    return (f"; baseline {row['baseline_ms']:.4f} ms -> {row['change_ms']:.4f} "
+            f"(turns {', '.join(f'{t:.4f}' for t in row['turns_ms'])}), C entry host "
+            f"{row['baseline_host_us']:.2f} -> {row['change_host_us']:.2f} us")
+
+
+def check_gemm(results: dict, prefill_m: int, baseline=None) -> None:
     """The GEMM kernel at the five projection shapes of smollm-360m, at the
-    decode M (slots) and a prefill M, against its plain version."""
+    decode M (slots) and a prefill M, against its plain version: each
+    shape's plan, median times, kernel/library ratio and (at the decode M)
+    the wrapper's host microseconds a call."""
     g = torch.Generator(device=DEV).manual_seed(2)
     rows = []
     for M in (SLOTS, prefill_m):
@@ -421,40 +528,57 @@ def check_gemm(results: dict, prefill_m: int) -> None:
             tol = 2.0**-7 * float(want.float().abs().max())
             if err > tol:
                 fail(f"gemm {M}x{K}x{N} trans_b={trans_b}: max err {err:.3e} > {tol:.3e}")
+            del want
             lib = (lambda a=a, b=b: a @ b.T) if trans_b else (lambda a=a, b=b: a @ b)
+            kern = lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)  # noqa: E731
             b_ms, b_by = bound_ms((M * K + K * N + M * N) * 2, 2.0 * M * N * K)
             row = dict(
                 M=M, K=K, N=N, trans_b=trans_b, max_abs_err=err, tolerance=tol,
-                ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)),
-                plain_ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_plain(a, b, trans_b=t)),
-                library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                plan=dataclasses.asdict(mm.plan(M, N, K, trans_b)),
+                ms=median_ms(kern),
+                plain_ms=median_ms(lambda a=a, b=b, t=trans_b: mm.matmul_plain(a, b, trans_b=t)),
+                library_ms=median_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                host_us=host_us(kern) if M == SLOTS else None,
             )
+            row["ratio"] = row["ms"] / row["library_ms"]
+            if baseline is not None:
+                row.update(against_baseline(baseline, a, b, trans_b))
             rows.append(row)
             print(f"gemm M={M} K={K} N={N} trans_b={trans_b}: max_abs_err={err:.3e} "
                   f"(tol {tol:.3e}) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"library_ms={row['library_ms']:.4f} bound_ms={b_ms:.4f} ({b_by})",
-                  flush=True)
+                  f"library_ms={row['library_ms']:.4f} kernel/library {row['ratio']:.2f}x "
+                  f"bound_ms={b_ms:.4f} ({b_by}); {plan_text(M, N, K, trans_b)}"
+                  + (f"; wrapper host {row['host_us']:.2f} us a call" if row["host_us"] else "")
+                  + _baseline_text(row), flush=True)
     # the summary line carries the sums over one decode step's shapes
     # (M = slots), the case the serve loop runs most
     dec_rows = [r for r in rows if r["M"] == SLOTS]
+    pre_rows = [r for r in rows if r["M"] == prefill_m]
     results["gemm_bf16"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=sum(r["ms"] for r in dec_rows), plain_ms=sum(r["plain_ms"] for r in dec_rows),
         library_ms=sum(r["library_ms"] for r in dec_rows),
         bound_ms=sum(r["bound_ms"] for r in dec_rows), bound_by="bytes",
+        prefill_ms=sum(r["ms"] for r in pre_rows),
+        prefill_library_ms=sum(r["library_ms"] for r in pre_rows),
         shape="sum over the five (K,N) projection shapes at M=8",
         cases=rows,
     )
+    print(f"gemm sums: M={SLOTS} {results['gemm_bf16']['ms']:.4f} ms (library "
+          f"{results['gemm_bf16']['library_ms']:.4f}); M={prefill_m} "
+          f"{results['gemm_bf16']['prefill_ms']:.4f} ms (library "
+          f"{results['gemm_bf16']['prefill_library_ms']:.4f})", flush=True)
 
 
-def check_gemm_abft(results: dict, prefill_m: int) -> None:
+def check_gemm_abft(results: dict, prefill_m: int, baseline=None) -> None:
     """The checksum GEMM at the five projection shapes, at the decode M of
     the ABFT path (slots + the checksum row), at M = 17 (past the 16-row
-    tile) and at a prefill M: its product bitwise ``gemm_bf16``'s, both
-    outputs the same bits on a second run, the product within one bf16 ulp
-    of the plain version and the checksums within the ABFT tolerance
+    checksum block) and at a prefill M: its product bitwise ``gemm_bf16``'s,
+    both outputs the same bits on a second run, the product within one bf16
+    ulp of the plain version and the checksums within the ABFT tolerance
     ``ABFT_ATOL + ABFT_RTOL * (e^T|A|)|B|`` of the plain version's (the
-    verdict's own bound; both sum fp32 in other orders)."""
+    verdict's own bound; both sum fp32 in other orders); then a row's bits
+    at every M bucket and across the skinny/wide switch."""
     g = torch.Generator(device=DEV).manual_seed(4)
     rows = []
     for M in (SLOTS + 1, 17, prefill_m + 1):
@@ -484,40 +608,56 @@ def check_gemm_abft(results: dict, prefill_m: int) -> None:
                      f"{float(c_err.max()):.3e} beyond the ABFT tolerance")
             if bool(mmops.matmul_abft(a, b, trans_b=trans_b)[1]):
                 fail(f"{case}: the verdict flagged a clean product")
+            del want, want_checks, scale, bl
             row = dict(M=M, K=K, N=N, trans_b=trans_b, max_abs_err=err, tolerance=tol,
-                       checks_max_abs_err=float(c_err.max()))
-            if M == SLOTS + 1:
+                       checks_max_abs_err=float(c_err.max()),
+                       plan=dataclasses.asdict(mm.plan(M, N, K, trans_b)))
+            if M in (SLOTS + 1, prefill_m + 1):
 
                 def lib(a=a, b=b, t=trans_b, nrb=nrb, bm=bm, M=M):
                     c = (a @ b.T) if t else (a @ b)
                     pad = torch.nn.functional.pad(c.float(), (0, 0, 0, nrb * bm - M))
                     return c, pad.reshape(nrb, bm, -1).sum(1)
 
+                kern = lambda a=a, b=b, t=trans_b: mm.matmul_abft_cuda(a, b, trans_b=t)  # noqa
                 b_ms, b_by = bound_ms((M * K + K * N + M * N) * 2 + nrb * N * 4,
                                       2.0 * M * N * K + M * N)
                 row.update(
-                    ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_abft_cuda(a, b, trans_b=t)),
-                    plain_ms=time_ms(
+                    ms=median_ms(kern),
+                    plain_ms=median_ms(
                         lambda a=a, b=b, t=trans_b: mm.matmul_abft_plain(a, b, trans_b=t)),
-                    library_ms=time_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                    gemm_bf16_ms=time_ms(lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)),
+                    library_ms=median_ms(lib), bound_ms=b_ms, bound_by=b_by,
+                    gemm_bf16_ms=median_ms(
+                        lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)),
+                    host_us=host_us(kern) if M == SLOTS + 1 else None,
                 )
+                row["ratio"] = row["ms"] / row["library_ms"]
+                if baseline is not None and M == SLOTS + 1:
+                    row.update(against_baseline(baseline, a, b, trans_b, abft_rows=bm))
             rows.append(row)
             print(f"{case}: max_abs_err={err:.3e} (tol {tol:.3e}) checksum err "
-                  f"{row['checks_max_abs_err']:.3e}" + (
+                  f"{row['checks_max_abs_err']:.3e}; {plan_text(M, N, K, trans_b)}" + (
                       f" ms={row['ms']:.4f} (gemm_bf16 {row['gemm_bf16_ms']:.4f}) "
                       f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+                      f"kernel/library {row['ratio']:.2f}x "
                       f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})"
-                      if "ms" in row else ""), flush=True)
-    # a row's bits do not depend on M, across the 16 -> 17 tile switch
-    a = torch.randn((17, 960), generator=g, device=DEV).bfloat16()
-    b = torch.randn((960, 2560), generator=g, device=DEV).bfloat16()
-    o16, _ = mm.matmul_abft_cuda(a[:16].contiguous(), b)
-    o17, _ = mm.matmul_abft_cuda(a, b)
-    if not torch.equal(o16, o17[:16]):
-        fail("gemm_abft: rows changed between M = 16 and M = 17")
-    print("gemm_abft: product == gemm_bf16 bitwise, repeat runs bitwise, rows equal "
-          "across the M = 16 -> 17 tile switch", flush=True)
+                      if "ms" in row else "")
+                  + (f"; wrapper host {row['host_us']:.2f} us a call" if row.get("host_us")
+                     else "") + _baseline_text(row), flush=True)
+    # a row's bits do not depend on M, across every M bucket and the
+    # skinny (M <= 64) / wide switch, in both layouts of B
+    for K, N, trans_b in ((960, 2560, False), (960, 320, True)):
+        a = torch.randn((300, K), generator=g, device=DEV).bfloat16()
+        b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=DEV).bfloat16()
+        full, _ = mm.matmul_abft_cuda(a, b, trans_b=trans_b)
+        for M in (1, 8, 9, 16, 17, 40, 64, 65, 128, 129):
+            part = a[:M].contiguous()
+            if not (torch.equal(mm.matmul_abft_cuda(part, b, trans_b=trans_b)[0], full[:M])
+                    and torch.equal(mm.matmul_cuda(part, b, trans_b=trans_b), full[:M])):
+                fail(f"gemm_abft K={K} N={N} trans_b={trans_b}: rows changed between M = {M} "
+                     f"and M = 300")
+    print("gemm_abft: product == gemm_bf16 bitwise, repeat runs bitwise, rows equal at M = "
+          "1 ... 300 across every body switch", flush=True)
     dec_rows = [r for r in rows if r["M"] == SLOTS + 1]
     results["gemm_bf16_abft"] = dict(
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -527,6 +667,8 @@ def check_gemm_abft(results: dict, prefill_m: int) -> None:
         shape=f"sum over the five (K,N) projection shapes at M={SLOTS + 1}",
         cases=rows,
     )
+    print(f"gemm_abft sum at M={SLOTS + 1}: {results['gemm_bf16_abft']['ms']:.4f} ms (library "
+          f"pair {results['gemm_bf16_abft']['library_ms']:.4f})", flush=True)
 
 
 # ------------------------------------------------------------ serve phase --
@@ -796,8 +938,8 @@ def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) 
           f"{res['itl_p50_ms']:.2f}/{res['itl_p95_ms']:.2f} ms vs "
           f"{off_run['itl_p50_ms']:.2f}/{off_run['itl_p95_ms']:.2f} ms off", flush=True)
     out["serve_abft"] = res
-    out["profile"] = [profile_decode(cfg, params, reqs, layout="paged", abft_mode=m)
-                      for m in ("off", "checksum")]
+    out["profile"] = [profile_decode(cfg, params, reqs, layout="paged", abft_mode=m,
+                                     focus=(GEMM_KERNEL,)) for m in ("off", "checksum")]
 
     print("-- (b) fingerprints repeat bit for bit", flush=True)
     w0 = abft.weight_sums(eng.params)
@@ -1716,6 +1858,23 @@ def main() -> None:
         print(card)
         print(json.dumps({"flash": results["flash_attention"]}))
         return
+    # the first admission prefills the 8 prefix-sharing prompts, padded to
+    # the 16-token bucket above PREFIX + 15, as one batch
+    prefill_m = SLOTS * (-(-(PREFIX + 15) // 16) * 16)
+    if sys.argv[1:2] == ["--gemm"]:
+        # the GEMM checks of phase 2 alone, optionally beside a baseline build
+        base = None
+        if sys.argv[2:3] == ["--baseline"] and len(sys.argv) == 4:
+            base = baseline_library(sys.argv[3])
+        elif len(sys.argv) != 2:
+            fail("usage: chip_smoke.py --gemm [--baseline FILE]")
+        print("== the GEMM and the checksum GEMM at smollm-360m's shapes", flush=True)
+        check_gemm(results, prefill_m, base)
+        check_gemm_abft(results, prefill_m, base)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"gemm": {k: results[k] for k in ("gemm_bf16", "gemm_bf16_abft")}}))
+        return
     print("== kernels against their plain versions", flush=True)
     check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
                  [0, 1, 17, 100, 255, 300, 777, 1024])
@@ -1728,9 +1887,6 @@ def main() -> None:
         print(json.dumps({"decode": results}))
         return
     cfg = get("smollm-360m")
-    # the first admission prefills the 8 prefix-sharing prompts, padded to
-    # the 16-token bucket above PREFIX + 15, as one batch
-    prefill_m = SLOTS * (-(-(PREFIX + 15) // 16) * 16)
     check_gemm(results, prefill_m=prefill_m)
     check_gemm_abft(results, prefill_m=prefill_m)
 
@@ -1758,7 +1914,7 @@ def main() -> None:
         print(f"matmul={matmul}: paged tokens == contiguous tokens", flush=True)
 
     print("== where a decode step's time goes", flush=True)
-    prof = profile_decode(cfg, params, reqs)
+    prof = profile_decode(cfg, params, reqs, focus=(GEMM_KERNEL,))
 
     print("== SDC defense (abft), full width, paged KV", flush=True)
     sdc = sdc_phase(cfg, params, reqs, runs[-1], tokens[("paged", "pallas")], totals)

@@ -99,3 +99,33 @@ def hopper_levels() -> tuple[MemLevel, ...]:
         MemLevel("L2", capacity_bytes=L2_BYTES, double_buffered=False),
         MemLevel("HBM", capacity_bytes=None),
     )
+
+
+# The tensor cores as the bf16 GEMM's skinny body (csrc/matmul.cu) drives
+# them: wgmma m64nNk16 with the weight as the 64-row operand (64 output
+# columns a consumer warpgroup) and the activation rows as N; one 64-k
+# panel of both a ring stage.
+GEMM_TILE_N = 64
+GEMM_PANEL_K = 64
+
+
+def hopper_gemm_array(rows: int) -> ArraySpec:
+    """One consumer warpgroup's wgmma as the paper's PE array, output
+    stationary: ``GEMM_TILE_N`` weight rows (the output's columns, N) by
+    ``rows`` activation rows (M)."""
+    return ArraySpec(dims=(GEMM_TILE_N, rows))
+
+
+def hopper_gemm_levels() -> tuple[MemLevel, ...]:
+    """The H100 as the paper describes an accelerator, for the GEMM's split
+    search (``kernels/matmul/ops.py``: ``gemm_search``): per-PE registers
+    (one fp32 accumulator and one word of each operand), the shared-memory
+    ring (a stage: one 64-k panel of the weight tile and of the activation
+    rows), the L2 cache (what a block streams over its chunk of K) and HBM
+    (the grid: output-column tiles x K chunks)."""
+    return (
+        MemLevel("REG", capacity_bytes=2 * (2 + 2), per_pe=True, double_buffered=False),
+        MemLevel("SMEM", capacity_bytes=CONV_RING_BYTES, double_buffered=False),
+        MemLevel("L2", capacity_bytes=L2_BYTES, double_buffered=False),
+        MemLevel("HBM", capacity_bytes=None),
+    )

@@ -51,6 +51,14 @@ orders), its repeat runs bitwise.  Its bf16 body (a TMA ring feeding
 to 256, up to 16 query heads per KV head, lengths that are no multiple of
 its tiles, windows narrower than a key tile, rows with no live key and
 views at any strides; the kernel's own plan equals the Python mirror.
+The bf16 GEMM (a TMA ring feeding ``wgmma``, tiles from
+``matmul.plan``) is held at smollm-360m's five projection shapes at a
+decode and a prefill M, its rows bitwise equal at every M from 1 to
+2176 (across the skinny/wide body switch and every M bucket) in both
+layouts of B, with and without checksums, on operands TMA takes and on
+those the masked path takes (a row pitch that is no multiple of 16
+bytes, a misaligned base); the kernel's own plan equals the Python
+mirror.
 """
 
 import ctypes
@@ -225,9 +233,9 @@ def test_gemm_kernel_matches_plain(cuda, M, K, N, trans_b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gemm_rows_do_not_depend_on_m(cuda, dtype):
-    """One block sums each output in a fixed order: a row's bits are the
-    same whatever the other rows are (decode M and prefill M agree, across
-    the 16 -> 64 row-tile switch)."""
+    """Each output is summed in a fixed order that M does not change: a
+    row's bits are the same whatever the other rows are (decode M and
+    prefill M agree, across the M buckets)."""
     g = torch.Generator(device=cuda).manual_seed(5)
     a, b = (_randn(s, g, cuda).to(dtype) for s in ((40, 960), (960, 320)))
     full = matmul_cuda(a, b)
@@ -291,13 +299,107 @@ def test_gemm_abft_kernel(cuda, M, K, N, trans_b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gemm_abft_rows_do_not_depend_on_m_across_the_tile_switch(cuda, dtype):
-    """16 rows take the 16-row tile, 17 the 64-row tile: a row's bits stay."""
+    """16 rows take the 16-row checksum block and M tile, 17 the 64-row block
+    and the 32-row tile: a row's bits stay."""
     g = torch.Generator(device=cuda).manual_seed(6)
     a, b = (_randn(s, g, cuda).to(dtype) for s in ((17, 960), (960, 2560)))
     o16, _ = matmul_abft_cuda(a[:16].contiguous(), b)
     o17, _ = matmul_abft_cuda(a, b)
     assert torch.equal(o16, o17[:16])
     assert torch.equal(matmul_cuda(a[:16].contiguous(), b), matmul_cuda(a, b)[:16])
+
+
+GEMM_SERVE = [(960, 960, False), (960, 320, False), (960, 2560, False), (2560, 960, False),
+              (960, 49152, True)]
+GEMM_MS = [1, 8, 9, 16, 17, 40, 64, 65, 128, 129, 300, 2176]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("K,N", [(960, 320), (2560, 960), (960, 2560), (70, 130), (64, 49)])
+def test_gemm_rows_do_not_depend_on_m_across_every_body(cuda, K, N, trans_b):
+    """A row's bits at M = 1 ... 2176 equal its bits at 2176, through
+    ``gemm`` and ``gemm_abft``, across the skinny/wide switch at 64 -> 65 and
+    every M bucket; (70, 130) runs the masked path (140- and 260-byte rows),
+    (64, 49) a single panel and a ragged N."""
+    g = torch.Generator(device=cuda).manual_seed(K + N + trans_b)
+    a = _randn((GEMM_MS[-1], K), g, cuda)
+    b = _randn((N, K) if trans_b else (K, N), g, cuda)
+    full = matmul_cuda(a, b, trans_b=trans_b)
+    for M in GEMM_MS:
+        part = a[:M].contiguous()
+        got = matmul_cuda(part, b, trans_b=trans_b)
+        out, _ = matmul_abft_cuda(part, b, trans_b=trans_b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, full[:M]), f"M={M}: rows differ from M=2176"
+        assert torch.equal(out, got), f"M={M}: checksum GEMM's product differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 2176])
+@pytest.mark.parametrize("K,N,trans_b", GEMM_SERVE)
+def test_gemm_serve_shapes(cuda, M, K, N, trans_b):
+    """smollm-360m's projections at the decode M and a prefill M: within one
+    bf16 ulp of the output's scale of the plain version, repeats bitwise,
+    the checksum GEMM (M + 1 rows, as the ABFT path runs it) bitwise the
+    GEMM's and its checksums within the ABFT tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = _randn((M + 1, K), g, cuda)
+    b = _randn((N, K) if trans_b else (K, N), g, cuda)
+    got = matmul_cuda(a[:M].contiguous(), b, trans_b=trans_b)
+    again = matmul_cuda(a[:M].contiguous(), b, trans_b=trans_b)
+    out, checks = matmul_abft_cuda(a, b, trans_b=trans_b)
+    base = matmul_cuda(a, b, trans_b=trans_b)
+    torch.cuda.synchronize()
+    want = matmul_plain(a[:M], b, trans_b=trans_b).float()
+    ulp = 2.0**-7 * float(want.abs().max())
+    assert torch.equal(got, again) and torch.equal(out, base) and torch.equal(base[:M], got)
+    assert float((got.float() - want).abs().max()) <= ulp
+    _, want_checks = matmul_abft_plain(a, b, trans_b=trans_b)
+    bm = abft_block_rows(M + 1)
+    nrb = checks.shape[0]
+    a_abs = torch.nn.functional.pad(a.float().abs(), (0, 0, 0, nrb * bm - M - 1))
+    scale = a_abs.reshape(nrb, bm, K).sum(1) @ (b.T if trans_b else b).float().abs()
+    assert bool(((checks - want_checks).abs() <= abft.ABFT_ATOL + abft.ABFT_RTOL * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("M", [8, 300])
+def test_gemm_misaligned_base_takes_the_masked_path(cuda, M, trans_b):
+    """Operands whose base is 2 bytes past a 16-byte boundary (TMA refuses
+    them) are loaded by the masked path into the same layout: the same bits
+    as aligned copies of the same values."""
+    K, N = 960, 320
+    g = torch.Generator(device=cuda).manual_seed(M + trans_b)
+    abuf = _randn((M * K + 1,), g, cuda)
+    bbuf = _randn((N * K + 1,), g, cuda)
+    a = abuf[1:].view(M, K)
+    b = bbuf[1:].view(N, K) if trans_b else bbuf[1:].view(K, N)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    got = matmul_cuda(a, b, trans_b=trans_b)
+    out, checks = matmul_abft_cuda(a, b, trans_b=trans_b)
+    ref_out, ref_checks = matmul_abft_cuda(a.clone(), b.clone(), trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, matmul_cuda(a.clone(), b.clone(), trans_b=trans_b))
+    assert torch.equal(out, got) and torch.equal(out, ref_out) and torch.equal(checks, ref_checks)
+    want = matmul_plain(a, b, trans_b=trans_b).float()
+    assert float((got.float() - want).abs().max()) <= 2.0**-7 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_gemm_plan_equals_the_kernels(cuda):
+    """The Python plan (``matmul.plan``) equals the kernel's own
+    (``gemm_plan``) at every M bucket of the serve shapes and at ragged
+    and unaligned shapes."""
+    from repro_torch.kernels.matmul import matmul as mm
+
+    shapes = GEMM_SERVE + [(70, 130, False), (37, 49, True), (64, 49, False), (128, 64, True),
+                           (0, 8, False), (12800, 100, False)]
+    for M in GEMM_MS + [2177, 5000, 40000]:
+        for K, N, trans_b in shapes:
+            assert mm.kernel_plan(M, N, K, trans_b) == mm.plan(M, N, K, trans_b).as_ints(), \
+                (M, K, N, trans_b)
 
 
 @pytest.mark.cuda
