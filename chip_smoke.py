@@ -7,6 +7,8 @@
     python3 chip_smoke.py --flash     # flash attention alone (phase 8 (a, b))
     python3 chip_smoke.py --gemm      # the GEMM checks of phase 2 alone
     python3 chip_smoke.py --gemm --baseline OLD/matmul.cu   # ... beside another build
+    python3 chip_smoke.py --recur     # WKV-6 and the scan alone (phases 6 (a, b), 7 (a, b))
+    python3 chip_smoke.py --recur --baseline OLD/   # ... beside OLD/{linear_scan,wkv6}.cu
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -62,10 +64,15 @@ result.  Phases, any failure of which exits non-zero:
    seeded data-dependent decay: ``w0`` spread over [-6, -1] and
    ``w_lora_b`` ~ N(0, 1) in place of init's constant decay): (a) the WKV-6
    kernel against its plain version at the decode (8 rows x 32 heads, one
-   step) and prefill (1 x 32, 256 steps) shapes, within 1e-5 of the
-   output's and the state's scale; (b) their times with a cold L2 and the
-   bound (bytes over 3.35 TB/s or 7 fp32 operations per state element and
-   step over the 66.9 TFLOP/s CUDA-core peak); (c) 16 requests (prompts of
+   step) and prefill (1 x 32, 256 steps; and 8 x 32, 256 steps, eight
+   prompts in one call) shapes, within 1e-5 of the
+   output's and the state's scale, a repeat call bitwise, and at decode
+   one row called alone bitwise the same row of the batch; (b) their times
+   with a cold L2 and the bound (bytes over 3.35 TB/s or 7 fp32 operations
+   per state element and step over the 66.9 TFLOP/s CUDA-core peak), beside
+   the kernel's plan (held equal to the kernel's own: vector width, steps
+   a thread runs at once, columns a block, grid, ring stage, shared memory)
+   and the bytes its resident blocks keep in flight; (c) 16 requests (prompts of
    16-256 tokens, 48-64 greedy new tokens, 8 slots, ``max_len`` 1024)
    served with ``matmul="xla"`` and ``"pallas"``: every request finished,
    the kernel launched exactly 24 times per prefill call and per decode
@@ -78,8 +85,11 @@ result.  Phases, any failure of which exits non-zero:
    d_ff 7680, vocab 256000, bf16, random weights from a seeded generator,
    with a seeded slow decay: ``lam`` drawn in [-9, -2] in place of init's
    [0.9, 4], whose decay forgets everything each step): (a) the linear-scan
-   kernel against its plain version, bitwise, at the decode (8 x 1 x 2560)
-   and prefill (1 x 2048 x 2560) shapes, and the decode-attention kernels
+   kernel against its plain version and its own repeat, bitwise, at the
+   decode (8 x 1 x 2560) and prefill (1 x 2048 x 2560; 1 x 40 x 2560; and
+   8 x 200 x 2560, eight prompts in one call) shapes, with its
+   plan (body, grid, ring stages and their steps, shared memory, held equal
+   to the kernel's own) and bytes in flight, and the decode-attention kernels
    (contiguous and paged) at head_dim 256 with 10 query heads per KV head
    on a 2048-slot ring with six of eight rows wrapped, bitwise; (b) their
    times with a cold L2 beside the bound (bytes over 3.35 TB/s), the plain
@@ -130,7 +140,12 @@ checks of phase 2.  ``--gemm --baseline FILE`` also builds FILE (another
 version of ``csrc/matmul.cu`` with the same C entry points, say the
 parent commit's) and times it beside this one on the same inputs, in turns
 (baseline, this, this, baseline), with the C entry point's host
-microseconds a call of each.
+microseconds a call of each.  ``--recur`` runs phase 1, phase 6 (a, b)
+and the scan's part of phase 7 (a, b): per case the kernel's plan (body,
+grid, shared memory, bytes in flight), held equal to the kernel's own.
+``--recur --baseline DIR`` also builds DIR's ``linear_scan.cu`` and
+``wkv6.cu`` (the same C entry points, say the parent commit's) and times
+them beside this build's on the same inputs, in turns.
 """
 
 from __future__ import annotations
@@ -442,24 +457,48 @@ def plan_text(M: int, N: int, K: int, trans_b: bool) -> str:
             f"smem {p.smem}")
 
 
-def baseline_library(path: str):
-    """Build another version of ``csrc/matmul.cu`` (the same C entry points)
-    with the port's nvcc flags into ``build/`` and load it."""
+def baseline_library(path: str, sigs: dict | None = None):
+    """Build another version of a kernel source (by default
+    ``csrc/matmul.cu``; ``sigs`` maps the C entry points to load to their
+    ctypes argument types) with the port's nvcc flags into ``build/`` and
+    load it."""
     import ctypes
     import hashlib
 
+    sigs = sigs or {fn: mm._SIGS[fn] for fn in ("gemm", "gemm_abft")}
     src = Path(path).resolve()
     h = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    out = ROOT / "build" / "repro_torch" / f"libmatmul_baseline_{h}.so"
+    out = ROOT / "build" / "repro_torch" / f"lib{src.stem}_baseline_{h}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
                        check=True, capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(out))
-    for fn in ("gemm", "gemm_abft"):
-        getattr(lib, fn).argtypes = mm._SIGS[fn]
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def recur_baselines(directory: str) -> dict:
+    """The baseline builds of ``--recur --baseline DIR``: DIR's
+    ``linear_scan.cu`` and ``wkv6.cu`` (say the parent commit's), each
+    loaded with its C entry point."""
+    d = Path(directory)
+    return dict(
+        linear_scan=baseline_library(
+            str(d / "linear_scan.cu"),
+            {"linear_scan_fp32": ls._SCAN_SIGS["linear_scan_fp32"]}),
+        wkv6=baseline_library(str(d / "wkv6.cu"), {"wkv6_fp32": ls._SIGS["wkv6_fp32"]}),
+    )
+
+
+def in_turns(old_fn, new_fn) -> dict:
+    """Mean device ms of a baseline and this build on the same operands, in
+    turns (baseline, this, this, baseline)."""
+    turns = [time_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+    return dict(baseline_ms=(turns[0] + turns[3]) / 2, change_ms=(turns[1] + turns[2]) / 2,
+                turns_ms=turns)
 
 
 def against_baseline(base, a, b, trans_b: bool, abft_rows: int = 0) -> dict:
@@ -1183,7 +1222,10 @@ def conv_phase(totals: dict, results: dict) -> dict:
 # ------------------------------------------------------------- rwkv phase --
 
 WKV_TOL = 1e-5  # of the output's (and the state's) largest magnitude
-WKV_SHAPES = {"decode": (SLOTS, 32, 1), "prefill": (1, 32, 256)}  # (B, H, T)
+# (B, H, T): a decode step, one 256-token prompt, and eight (the serve
+# loop's slots) prefilled in one call
+WKV_SHAPES = {"decode": (SLOTS, 32, 1), "prefill": (1, 32, 256),
+              "prefill_batch": (SLOTS, 32, 256)}
 
 
 def wkv_inputs(B: int, H: int, T: int, g) -> tuple:
@@ -1208,20 +1250,78 @@ def wkv_err(got, want) -> tuple[float, float]:
     return err, tol
 
 
-def check_wkv6(results: dict) -> None:
+def _turns_text(row: dict) -> str:
+    if "baseline_ms" not in row:
+        return ""
+    return (f"; baseline {row['baseline_ms']:.5f} ms -> {row['change_ms']:.5f} "
+            f"(turns {', '.join(f'{t:.5f}' for t in row['turns_ms'])})")
+
+
+def wkv_plan_row(args, got) -> dict:
+    """The WKV-6 kernel's plan for these operands (held equal to the
+    kernel's own) and the bytes its resident blocks keep in flight."""
+    r, k, v, w, u, s0 = args
+    B, H, T, Dk = r.shape
+    plan = ls.wkv_plan(B, H, T, Dk, v.shape[3], ls.wkv_vec_ok(r, k, v, w, s0, *got))
+    if ls.wkv_kernel_plan(r, k, v, w, s0, *got) != plan.as_ints():
+        fail(f"wkv6 ({B}, {H}, {T}): the kernel's plan {ls.wkv_kernel_plan(r, k, v, w, s0, *got)}"
+             f" differs from wkv_plan's {plan.as_ints()}")
+    return dict(plan=dataclasses.asdict(plan), in_flight_bytes=plan.in_flight(Dk, T))
+
+
+def wkv_against_baseline(base, args) -> dict:
+    """A baseline build's WKV-6 and this one's on the same operands through
+    their C entry points: within WKV_TOL of each other's scale, mean device
+    ms in turns."""
+    r, k, v, w, u, s0 = args
+    B, H, T, Dk = r.shape
+    new = _build.library("wkv6", ls._SIGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+
+    def call(lib, tag):
+        o, sT = outs.setdefault(tag, (torch.empty_like(v), torch.empty_like(s0)))
+        err = lib.wkv6_fp32(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                            u.data_ptr(), s0.data_ptr(), o.data_ptr(), sT.data_ptr(), B, H, T,
+                            Dk, v.shape[3], *ls._wkv_strides(r, v), stream)
+        _build.check(err, f"{tag} wkv6")
+
+    old_fn, new_fn = (lambda: call(base, "baseline")), (lambda: call(new, "change"))
+    old_fn()
+    new_fn()
+    torch.cuda.synchronize()
+    err, tol = wkv_err(outs["change"], outs["baseline"])
+    if not err <= tol:
+        fail(f"wkv6 ({B}, {H}, {T}): this build and the baseline differ by {err:.3e} > {tol:.3e}")
+    return dict(in_turns(old_fn, new_fn), baseline_max_diff=err)
+
+
+def check_wkv6(results: dict, baseline=None) -> None:
     """(a) and (b) of phase 6: the WKV-6 kernel against its plain version
-    at the serve path's decode and prefill shapes, and its times."""
+    at the serve path's decode and prefill shapes (a repeat bitwise, and at
+    decode one row alone bitwise the same row in the batch), its plan and
+    its times; with ``baseline`` (``recur_baselines``) another build timed
+    beside it."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain einsum in full fp32
     g = torch.Generator(device=DEV).manual_seed(8)
     rows = {}
     for case, (B, H, T) in WKV_SHAPES.items():
         args = wkv_inputs(B, H, T, g)
         got = ls.wkv6_cuda(*args)
+        again = ls.wkv6_cuda(*args)
         want = ls.wkv6_plain(*args)
         torch.cuda.synchronize()
         err, tol = wkv_err(got, want)
         if not err <= tol:
             fail(f"wkv6 {case} B={B} H={H} T={T}: max err {err:.3e} > {tol:.3e}")
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            fail(f"wkv6 {case}: a repeat call differs")
+        if B > 1:
+            b, h = B - 3, H // 3
+            solo = ls.wkv6_cuda(*(t[b:b + 1, h:h + 1].contiguous() for t in args[:4]),
+                                args[4][h:h + 1], args[5][b:b + 1, h:h + 1])
+            if not all(torch.equal(p, q[b:b + 1, h:h + 1]) for p, q in zip(solo, got)):
+                fail(f"wkv6 {case}: row ({b}, {h}) alone differs from the same row in the batch")
         # each input read once (r, k, v, w, u, s0), each output written once
         # (out, s_T); 7 fp32 operations per state element per step
         nbytes = 4 * (5 * B * H * T * 64 + H * 64 + 2 * B * H * 64 * 64)
@@ -1232,14 +1332,21 @@ def check_wkv6(results: dict) -> None:
             ms=time_ms(lambda a=args: ls.wkv6_cuda(*a)),
             plain_ms=time_ms(lambda a=args: ls.wkv6_plain(*a), iters=5),
             library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+            **wkv_plan_row(args, got),
         )
+        if baseline is not None:
+            row.update(wkv_against_baseline(baseline["wkv6"], args))
+        pl = row["plan"]
         print(f"wkv6 {case} B={B} H={H} T={T}: max_abs_err={err:.3e} (tol {tol:.3e}) "
-              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.5f} "
+              f"ms={row['ms']:.5f} plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.5f} "
               f"({b_by}, {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP); "
-              f"library_ms: none (no single PyTorch call computes the recurrence)",
-              flush=True)
+              f"library_ms: none (no single PyTorch call computes the recurrence); "
+              f"plan vec {pl['vec']} unroll {pl['unroll']} cols {pl['cols']} grid {pl['grid']} "
+              f"x {pl['threads']} chunk {pl['chunk']} "
+              f"smem {pl['smem']} in flight {row['in_flight_bytes'] / 1e6:.2f} MB"
+              + _turns_text(row), flush=True)
     # the summary line carries the decode shape, the call the serve loop
-    # makes most (24 per step); both shapes are in build/chip_smoke.json
+    # makes most (24 per step); every shape is in build/chip_smoke.json
     results["wkv6"] = dict(rows["decode"], shape="decode: B=8 H=32 T=1 D=64", cases=rows)
 
 
@@ -1317,13 +1424,38 @@ def rwkv_phase(totals: dict, results: dict) -> dict:
 # ----------------------------------------------------- recurrentgemma phase --
 
 RG_MAX_LEN = 4096
-SCAN_SHAPES = {"decode": (SLOTS, 1), "prefill": (1, 2048)}  # (B, T) at D = rnn_width
+# (B, T) at D = rnn_width: a decode step, a long prompt, a short one, and
+# eight prompts of the serve loop's usual length in one call
+SCAN_SHAPES = {"decode": (SLOTS, 1), "prefill": (1, 2048), "prefill_short": (1, 40),
+               "prefill_batch": (SLOTS, 200)}
 
 
-def check_linear_scan(results: dict, D: int) -> None:
+def scan_against_baseline(base, a, x, h0) -> dict:
+    """A baseline build's scan and this one's on the same operands through
+    their C entry points: bitwise equal, mean device ms in turns."""
+    new = _build.library("linear_scan", ls._SCAN_SIGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = {}
+
+    def call(lib, tag):
+        o, hT = outs.setdefault(tag, (torch.empty_like(a), torch.empty_like(h0)))
+        err = lib.linear_scan_fp32(*ls._scan_args(a, x, h0, o, hT), stream)
+        _build.check(err, f"{tag} linear_scan")
+
+    old_fn, new_fn = (lambda: call(base, "baseline")), (lambda: call(new, "change"))
+    old_fn()
+    new_fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(outs["baseline"], outs["change"])):
+        fail(f"linear_scan {tuple(a.shape)}: this build and the baseline differ")
+    return in_turns(old_fn, new_fn)
+
+
+def check_linear_scan(results: dict, D: int, baseline=None) -> None:
     """(a) and (b) of phase 7 for the scan: the kernel against its plain
-    version, bitwise, at the serve path's decode and prefill shapes, and
-    its times."""
+    version, bitwise, at the serve path's decode and prefill shapes (a
+    repeat bitwise too), its plan and its times; with ``baseline``
+    (``recur_baselines``) another build timed beside it."""
     g = torch.Generator(device=DEV).manual_seed(10)
     rows = {}
     for case, (B, T) in SCAN_SHAPES.items():
@@ -1331,12 +1463,19 @@ def check_linear_scan(results: dict, D: int) -> None:
         x = torch.randn((B, T, D), generator=g, device=DEV)
         h0 = torch.randn((B, D), generator=g, device=DEV)
         got = ls.linear_scan_cuda(a, x, h0)
+        again = ls.linear_scan_cuda(a, x, h0)
         want = ls.linear_scan_plain(a, x, h0)
         torch.cuda.synchronize()
         err = max(float((p - q).abs().max()) for p, q in zip(got, want))
         if not all(torch.equal(p, q) for p, q in zip(got, want)):
             fail(f"linear_scan {case} B={B} T={T} D={D}: kernel differs from the plain "
                  f"version (max |diff| {err:.3e}); they must be bitwise equal")
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            fail(f"linear_scan {case}: a repeat call differs")
+        plan = ls.scan_plan(B, T, D, *ls.scan_eligibility(a, x, h0, *got))
+        if ls.scan_kernel_plan(a, x, h0, *got) != plan.as_ints():
+            fail(f"linear_scan {case}: the kernel's plan {ls.scan_kernel_plan(a, x, h0, *got)} "
+                 f"differs from scan_plan's {plan.as_ints()}")
         # a and x read once, out written once (12 B per element); h0 read
         # and h_T written once; one multiply and one add per element
         nbytes = 12 * B * T * D + 8 * B * D
@@ -1348,14 +1487,20 @@ def check_linear_scan(results: dict, D: int) -> None:
             # at T = 1 one call computes the step (out = h_T = x + a * h0)
             library_ms=time_ms(lambda: torch.addcmul(x[:, 0], a[:, 0], h0)) if T == 1 else None,
             bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+            plan=dataclasses.asdict(plan), in_flight_bytes=plan.in_flight(B, T, D),
         )
-        lib = (f"{row['library_ms']:.4f} (torch.addcmul)" if T == 1 else
+        if baseline is not None:
+            row.update(scan_against_baseline(baseline["linear_scan"], a, x, h0))
+        lib = (f"{row['library_ms']:.5f} (torch.addcmul)" if T == 1 else
                "none (no single PyTorch call computes the recurrence)")
-        print(f"linear_scan {case} B={B} T={T} D={D}: bitwise ms={row['ms']:.4f} "
+        print(f"linear_scan {case} B={B} T={T} D={D}: bitwise ms={row['ms']:.5f} "
               f"plain_ms={row['plain_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}, "
-              f"{nbytes / 1e6:.2f} MB) library_ms: {lib}", flush=True)
+              f"{nbytes / 1e6:.2f} MB) library_ms: {lib}; plan {plan.body} grid {plan.grid} x "
+              f"{plan.threads} stages {plan.stages} of {plan.steps} steps smem {plan.smem} "
+              f"in flight "
+              f"{row['in_flight_bytes'] / 1e6:.2f} MB" + _turns_text(row), flush=True)
     # the summary line carries the decode shape, the call the serve loop
-    # makes most (18 per step); both shapes are in build/chip_smoke.json
+    # makes most (18 per step); every shape is in build/chip_smoke.json
     results["linear_scan"] = dict(rows["decode"], shape=f"decode: B={SLOTS} T=1 D={D}",
                                   cases=rows)
 
@@ -1848,6 +1993,21 @@ def main() -> None:
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"conv": {"pass": results["conv2d"], **convs}}))
+        return
+    if sys.argv[1:2] == ["--recur"]:
+        # the two recurrences alone: phase 6 (a, b) and the scan of phase 7
+        # (a, b), optionally beside a baseline build
+        base = None
+        if sys.argv[2:3] == ["--baseline"] and len(sys.argv) == 4:
+            base = recur_baselines(sys.argv[3])
+        elif len(sys.argv) != 2:
+            fail("usage: chip_smoke.py --recur [--baseline DIR]")
+        print("== WKV-6 at rwkv6-1.6b's shapes, the scan at recurrentgemma-2b's", flush=True)
+        check_wkv6(results, base)
+        check_linear_scan(results, get("recurrentgemma-2b").rnn_width, base)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"recur": {k: results[k] for k in ("wkv6", "linear_scan")}}))
         return
     if sys.argv[1:] == ["--flash"]:
         # flash attention alone: phase 8 (a, b)

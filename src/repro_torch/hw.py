@@ -14,6 +14,9 @@ SM_COUNT = 132
 SMEM_PER_BLOCK_BYTES = 232_448      # 227 KB: the most one block may ask for
 SMEM_PER_SM_BYTES = 233_472         # 228 KB per SM, shared by its blocks
 SMEM_RESERVED_PER_BLOCK_BYTES = 1024  # the system's share of each block
+THREADS_PER_SM = 2048
+BLOCKS_PER_SM = 32                  # resident blocks an SM holds at most
+REGISTERS_PER_SM = 65_536           # 32-bit registers
 HBM_BYTES_PER_S = 3.35e12           # HBM3
 HBM_BYTES = 80 * 1024**3
 BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor-core peak

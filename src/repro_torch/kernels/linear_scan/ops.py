@@ -2,8 +2,8 @@
 The reference jit-wraps its Pallas calls and interprets them off the TPU;
 here each entry point is its kernel's wrapper, which takes the plain
 version only for CPU tensors.  The reference's ``bd`` (the TPU's channel
-block) has no counterpart: the CUDA scan gives every channel its own
-thread."""
+block) has no counterpart: the CUDA scan picks its own channel tiles
+(``linear_scan.scan_plan``)."""
 
 from __future__ import annotations
 

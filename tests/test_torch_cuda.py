@@ -58,7 +58,14 @@ decode and a prefill M, its rows bitwise equal at every M from 1 to
 layouts of B, with and without checksums, on operands TMA takes and on
 those the masked path takes (a row pitch that is no multiple of 16
 bytes, a misaligned base); the kernel's own plan equals the Python
-mirror.
+mirror.  The scan's Hopper bodies (a 16-byte step body up to 8 steps, a
+TMA or ``cp.async`` ring beyond) are held bitwise at T on both sides of
+each threshold, D not a multiple of any tile, misaligned bases, decays 0
+and 1 and in place; WKV-6's (column blocks, a ring of 16-step chunks, a
+tree-ordered sum fixed by Dk) at every (Dk, Dv) pair across chunk edges,
+decays 0, 1 and 1e-30, misaligned operands and in place, a row of a
+B = 8, H = 32 call bitwise that row called alone; both kernels' own plans
+equal the Python mirrors.
 """
 
 import ctypes
@@ -78,6 +85,7 @@ from repro_torch.kernels.conv2d import ops as convops
 from repro_torch.kernels.flash_attention import decode_attention as dec
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.kernels.linear_scan import linear_scan as ls_mod
 from repro_torch.kernels.linear_scan import ops as ls_ops
 from repro_torch.kernels.linear_scan.linear_scan import (
     linear_scan_cuda,
@@ -1143,3 +1151,174 @@ def test_flash_attention_plan_matches_the_kernel(cuda):
         assert lib.flash_plan(d, ctypes.addressof(out)) == 0
         assert tuple(out) == dataclasses.astuple(fa.plan(d)), d
     assert lib.flash_plan(12, ctypes.addressof(out)) != 0
+
+
+# ------------------------------------------- the recurrences' Hopper bodies
+
+
+def _scan_check(a, x, h0, body=None):
+    """The scan kernel bitwise its plain version and its own repeat, in
+    the body its plan names (``body``, where given), which the kernel's
+    own plan confirms."""
+    got = linear_scan_cuda(a, x, h0)
+    again = linear_scan_cuda(a, x, h0)
+    want = linear_scan_plain(a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    plan = ls_mod.scan_plan(*a.shape, *ls_mod.scan_eligibility(a, x, h0, *got))
+    assert ls_mod.scan_kernel_plan(a, x, h0, *got) == plan.as_ints()
+    if body is not None:
+        assert plan.body == body
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(8, 8, 2560), (8, 9, 2560), (2, 63, 100), (2, 65, 100),
+                                   (3, 64, 100), (2, 129, 100), (1, 2053, 2560), (5, 170, 96),
+                                   (2, 70, 12), (2, 40, 1), (2, 3, 1)])
+def test_linear_scan_bodies_equal_plain_bitwise(cuda, B, T, D):
+    """T on both sides of the step body's threshold (8), of the ring's
+    switch from one 64-step stage to 128-step stages (64 / 65) and of a
+    128-step stage, mostly no multiple of a stage; D not a multiple of the
+    ring's 32-channel tile (or below it) nor of the step body's 4-channel
+    vector; D = 1."""
+    g = torch.Generator(device=cuda).manual_seed(B * 31 + T * 7 + D)
+    a, x, h0 = _scan_inputs(B, T, D, g, cuda)
+    expect = ("step4" if D % 4 == 0 else "step1") if T <= ls_mod.SCAN_STEP_MAX_T else (
+        "ring_tma" if D % 4 == 0 else "ring_copy")
+    _scan_check(a, x, h0, expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 40, 300])
+def test_linear_scan_misaligned_bases_take_their_own_paths(cuda, T):
+    """Bases 4 bytes past a 16-byte boundary and step strides that are no
+    multiple of 16 bytes: the step body's 4-byte loads, the ring's 4-byte
+    cp.async; each bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    B, D = 3, 96
+    wide = torch.randn((B, T, D + 5), generator=g, device=cuda)
+    a = torch.rand((B, T, D + 5), generator=g, device=cuda)[..., 1:1 + D]
+    x = wide[..., 3:3 + D]
+    h0 = torch.randn((B, D + 1), generator=g, device=cuda)[:, 1:]
+    _scan_check(a, x, h0, "step1" if T <= ls_mod.SCAN_STEP_MAX_T else "ring_copy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [0.0, 1.0])
+@pytest.mark.parametrize("T", [1, 77])
+def test_linear_scan_at_decays_zero_and_one(cuda, fill, T):
+    g = torch.Generator(device=cuda).manual_seed(int(fill) * 10 + T)
+    _, x, h0 = _scan_inputs(4, T, 2560, g, cuda)
+    a = torch.full_like(x, fill)
+    _scan_check(a, x, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 200])
+def test_linear_scan_in_place_through_every_body(cuda, T):
+    g = torch.Generator(device=cuda).manual_seed(40 + T)
+    a, x, h0 = _scan_inputs(2, T, 2560, g, cuda)
+    want = linear_scan_cuda(a, x, h0)
+    state = h0.clone()
+    out, hT = linear_scan_cuda(a, x, state, inplace=True)
+    torch.cuda.synchronize()
+    assert hT.data_ptr() == state.data_ptr()
+    assert torch.equal(out, want[0]) and torch.equal(state, want[1])
+
+
+def _wkv_pair_inputs(B, H, T, Dk, Dv, gen, dev, w=None):
+    """(B, H, T, D) views of (B, T, H, D) streams with key and value head
+    sizes apart; a decay w in (0, 1) per step and channel unless given."""
+    def stream(D):
+        return torch.randn((B, T, H, D), generator=gen, device=dev).transpose(1, 2)
+
+    r, k, v = stream(Dk), stream(Dk), stream(Dv)
+    w = torch.exp(-torch.exp(stream(Dk) - 1.0)) if w is None else torch.full_like(r, w)
+    u = 0.5 * torch.randn((H, Dk), generator=gen, device=dev)
+    s0 = torch.randn((B, H, Dk, Dv), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _wkv_check(args):
+    r, k, v, w, u, s0 = args
+    got = wkv6_cuda(*args)
+    again = wkv6_cuda(*args)
+    torch.cuda.synchronize()
+    _assert_wkv_close(got, wkv6_plain(*args))
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    plan = ls_mod.wkv_plan(*r.shape, v.shape[3], ls_mod.wkv_vec_ok(r, k, v, w, s0, *got))
+    assert ls_mod.wkv_kernel_plan(r, k, v, w, s0, *got) == plan.as_ints()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 40])
+def test_wkv6_row_alone_equals_the_row_in_a_batch(cuda, T):
+    """A row of a B = 8, H = 32 call, bitwise the same row called alone:
+    the order of every sum is fixed by Dk alone, not by B, H or the grid."""
+    g = torch.Generator(device=cuda).manual_seed(70 + T)
+    args = _wkv_pair_inputs(8, 32, T, 64, 64, g, cuda)
+    got = _wkv_check(args)
+    for b, h in ((0, 0), (5, 17), (7, 31)):
+        # the row's own (1, 1, T, D) tensors: strides of its own, too
+        solo = wkv6_cuda(*(t[b:b + 1, h:h + 1].contiguous() for t in args[:4]),
+                         args[4][h:h + 1], args[5][b:b + 1, h:h + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(solo[0], got[0][b:b + 1, h:h + 1])
+        assert torch.equal(solo[1], got[1][b:b + 1, h:h + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [15, 16, 17, 49])
+@pytest.mark.parametrize("Dk,Dv", [(dk, dv) for dk in (16, 32, 64) for dv in (16, 32, 64)])
+def test_wkv6_every_head_pair_across_chunk_edges(cuda, Dk, Dv, T):
+    """Every (Dk, Dv) pair at lengths on both sides of the 16-step chunk
+    and across several ring turns, within 1e-5 of scale."""
+    g = torch.Generator(device=cuda).manual_seed(Dk * 1000 + Dv * 10 + T)
+    _wkv_check(_wkv_pair_inputs(2, 3, T, Dk, Dv, g, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decay", [0.0, 1.0, 1e-30])
+def test_wkv6_at_extreme_decays(cuda, decay):
+    """w = 0, w = 1 and w ~ 1e-30 (state products below fp32's normal
+    range), within 1e-5 of scale."""
+    g = torch.Generator(device=cuda).manual_seed(int(decay * 10) + 3)
+    _wkv_check(_wkv_pair_inputs(2, 4, 37, 64, 64, g, cuda, w=decay))
+
+
+@pytest.mark.cuda
+def test_wkv6_in_place_across_chunks(cuda):
+    g = torch.Generator(device=cuda).manual_seed(91)
+    r, k, v, w, u, s0 = _wkv_pair_inputs(3, 5, 70, 64, 32, g, cuda)
+    want = wkv6_cuda(r, k, v, w, u, s0)
+    state = s0.clone()
+    out, sT = wkv6_cuda(r, k, v, w, u, state, inplace=True)
+    torch.cuda.synchronize()
+    assert sT.data_ptr() == state.data_ptr()
+    assert torch.equal(out, want[0]) and torch.equal(state, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 33])
+def test_wkv6_misaligned_operands_take_four_byte_copies(cuda, T):
+    """Streams and state 4 bytes past a 16-byte boundary: the 4-byte
+    copies and scalar state loads, the same bits as aligned copies of the
+    same values."""
+    g = torch.Generator(device=cuda).manual_seed(17 + T)
+    args = _wkv_pair_inputs(2, 3, T, 32, 64, g, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [shifted(t.contiguous()) for t in args]
+    r, k, v, w, u, s0 = moved
+    assert not ls_mod.wkv_vec_ok(r, k, v, w, s0, torch.empty_like(v), torch.empty_like(s0))
+    got = _wkv_check(moved)
+    aligned = wkv6_cuda(*(t.contiguous() for t in args))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], aligned[0]) and torch.equal(got[1], aligned[1])
