@@ -9,6 +9,7 @@
     python3 chip_smoke.py --gemm --baseline OLD/matmul.cu   # ... beside another build
     python3 chip_smoke.py --recur     # WKV-6 and the scan alone (phases 6 (a, b), 7 (a, b))
     python3 chip_smoke.py --recur --baseline OLD/   # ... beside OLD/{linear_scan,wkv6}.cu
+    python3 chip_smoke.py --sched     # the scheduler at full width (phase 10)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -129,14 +130,37 @@ result.  Phases, any failure of which exits non-zero:
    plain version, with its times;
 9. check one full-width smollm-360m decode step through the kernels against
    the plain path on the card, then print the ``kernels`` summary and, last,
-   the ``{"ok": true, ...}`` line.
+   the ``{"ok": true, ...}`` line;
+10. the serve engine's scheduler at phase 3's widths (run after phase 4; 8
+   slots, ``max_len`` 1024, 16-token blocks, the phase-3 weights), held to
+   phase 3's uninterrupted ``matmul="pallas"`` tokens as the oracle, each
+   run's kernel launches counted as in phase 3 (the decode kernel of its
+   layout and, under ``"pallas"``, the GEMM must launch): (a) the phase-3
+   workload at priority 0 plus four priority-2 requests submitted after
+   step 20, contiguous (every slot busy, so the arrivals preempt) and paged
+   (``num_blocks`` just fits the first seven admissions, so a slot is free
+   and the arrivals starve for blocks): every original request's tokens
+   equal the oracle, at least 4 preemptions, all recovered, with the
+   replayed tokens, the steps that re-prefilled or replayed and their share
+   of the wall time; then once with ``matmul="xla"`` (cuBLAS projections),
+   reporting whether replay held (a divergence raises in the engine and is
+   printed); (b) the chunked-prefill lane, ``prefill_chunk`` 256 at
+   ``token_budget`` 256 and None, both layouts: tokens equal the oracle,
+   ITL p50/p95 and TTFT p50 beside monolithic admission's phase-3 run, and
+   the GEMM at the chunk's M = 256 on the five projection shapes as in
+   phase 2; (c) four phase-3 requests with ``deadline_steps`` 20 end FAILED,
+   each with a prefix of its oracle tokens; (d) ``StaticEngine`` on eight
+   128-token prompts: its greedy tokens equal ``Engine``'s, tokens/s of
+   both.
 
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
 bound, the plain version and SDPA), prints their rows as JSON and stops:
 no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way,
 ``--flash`` phase 1 and phase 8 (a, b), ``--gemm`` phase 1 and the GEMM
-checks of phase 2.  ``--gemm --baseline FILE`` also builds FILE (another
+checks of phase 2, ``--sched`` phase 1, the phase-3 oracle runs phase 10
+needs (contiguous ``"xla"`` and ``"pallas"``, paged ``"pallas"``) and phase
+10, whose JSON it prints last.  ``--gemm --baseline FILE`` also builds FILE (another
 version of ``csrc/matmul.cu`` with the same C entry points, say the
 parent commit's) and times it beside this one on the same inputs, in turns
 (baseline, this, this, baseline), with the C entry point's host
@@ -157,6 +181,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -211,8 +236,8 @@ from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
 from repro_torch.kernels.matmul import ops as mmops  # noqa: E402
 from repro_torch.serve import chaos, kvcache  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
-    Engine, KernelConfig, KVConfig, Request, SchedulerConfig, SDCUnlocalizedError,
-    ServeConfig,
+    Engine, KernelConfig, KVConfig, ReplayDivergedError, Request, SchedulerConfig,
+    SDCUnlocalizedError, ServeConfig, StaticEngine,
 )
 
 DEV = torch.device("cuda")
@@ -548,47 +573,50 @@ def _baseline_text(row: dict) -> str:
             f"{row['baseline_host_us']:.2f} -> {row['change_host_us']:.2f} us")
 
 
+def gemm_case(M: int, K: int, N: int, trans_b: bool, g, baseline=None) -> dict:
+    """The GEMM kernel at one shape against its plain version: the check,
+    the shape's plan, median times beside ``torch.matmul`` and the bound,
+    and (at the decode M) the wrapper's host microseconds a call."""
+    a = torch.randn((M, K), generator=g, device=DEV).bfloat16()
+    b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=DEV).bfloat16()
+    got = mm.matmul_cuda(a, b, trans_b=trans_b)
+    want = mm.matmul_plain(a, b, trans_b=trans_b)
+    err = float((got.float() - want.float()).abs().max())
+    # one bf16 ulp at the output's scale: both sides accumulate in
+    # fp32 (in other orders) and round once at the store
+    tol = 2.0**-7 * float(want.float().abs().max())
+    if err > tol:
+        fail(f"gemm {M}x{K}x{N} trans_b={trans_b}: max err {err:.3e} > {tol:.3e}")
+    del want
+    lib = (lambda a=a, b=b: a @ b.T) if trans_b else (lambda a=a, b=b: a @ b)
+    kern = lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)  # noqa: E731
+    b_ms, b_by = bound_ms((M * K + K * N + M * N) * 2, 2.0 * M * N * K)
+    row = dict(
+        M=M, K=K, N=N, trans_b=trans_b, max_abs_err=err, tolerance=tol,
+        plan=dataclasses.asdict(mm.plan(M, N, K, trans_b)),
+        ms=median_ms(kern),
+        plain_ms=median_ms(lambda a=a, b=b, t=trans_b: mm.matmul_plain(a, b, trans_b=t)),
+        library_ms=median_ms(lib), bound_ms=b_ms, bound_by=b_by,
+        host_us=host_us(kern) if M == SLOTS else None,
+    )
+    row["ratio"] = row["ms"] / row["library_ms"]
+    if baseline is not None:
+        row.update(against_baseline(baseline, a, b, trans_b))
+    print(f"gemm M={M} K={K} N={N} trans_b={trans_b}: max_abs_err={err:.3e} "
+          f"(tol {tol:.3e}) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={row['library_ms']:.4f} kernel/library {row['ratio']:.2f}x "
+          f"bound_ms={b_ms:.4f} ({b_by}); {plan_text(M, N, K, trans_b)}"
+          + (f"; wrapper host {row['host_us']:.2f} us a call" if row["host_us"] else "")
+          + _baseline_text(row), flush=True)
+    return row
+
+
 def check_gemm(results: dict, prefill_m: int, baseline=None) -> None:
     """The GEMM kernel at the five projection shapes of smollm-360m, at the
-    decode M (slots) and a prefill M, against its plain version: each
-    shape's plan, median times, kernel/library ratio and (at the decode M)
-    the wrapper's host microseconds a call."""
+    decode M (slots) and a prefill M (:func:`gemm_case` each)."""
     g = torch.Generator(device=DEV).manual_seed(2)
-    rows = []
-    for M in (SLOTS, prefill_m):
-        for K, N, trans_b in GEMM_SHAPES:
-            a = torch.randn((M, K), generator=g, device=DEV).bfloat16()
-            b = torch.randn((N, K) if trans_b else (K, N), generator=g, device=DEV).bfloat16()
-            got = mm.matmul_cuda(a, b, trans_b=trans_b)
-            want = mm.matmul_plain(a, b, trans_b=trans_b)
-            err = float((got.float() - want.float()).abs().max())
-            # one bf16 ulp at the output's scale: both sides accumulate in
-            # fp32 (in other orders) and round once at the store
-            tol = 2.0**-7 * float(want.float().abs().max())
-            if err > tol:
-                fail(f"gemm {M}x{K}x{N} trans_b={trans_b}: max err {err:.3e} > {tol:.3e}")
-            del want
-            lib = (lambda a=a, b=b: a @ b.T) if trans_b else (lambda a=a, b=b: a @ b)
-            kern = lambda a=a, b=b, t=trans_b: mm.matmul_cuda(a, b, trans_b=t)  # noqa: E731
-            b_ms, b_by = bound_ms((M * K + K * N + M * N) * 2, 2.0 * M * N * K)
-            row = dict(
-                M=M, K=K, N=N, trans_b=trans_b, max_abs_err=err, tolerance=tol,
-                plan=dataclasses.asdict(mm.plan(M, N, K, trans_b)),
-                ms=median_ms(kern),
-                plain_ms=median_ms(lambda a=a, b=b, t=trans_b: mm.matmul_plain(a, b, trans_b=t)),
-                library_ms=median_ms(lib), bound_ms=b_ms, bound_by=b_by,
-                host_us=host_us(kern) if M == SLOTS else None,
-            )
-            row["ratio"] = row["ms"] / row["library_ms"]
-            if baseline is not None:
-                row.update(against_baseline(baseline, a, b, trans_b))
-            rows.append(row)
-            print(f"gemm M={M} K={K} N={N} trans_b={trans_b}: max_abs_err={err:.3e} "
-                  f"(tol {tol:.3e}) ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                  f"library_ms={row['library_ms']:.4f} kernel/library {row['ratio']:.2f}x "
-                  f"bound_ms={b_ms:.4f} ({b_by}); {plan_text(M, N, K, trans_b)}"
-                  + (f"; wrapper host {row['host_us']:.2f} us a call" if row["host_us"] else "")
-                  + _baseline_text(row), flush=True)
+    rows = [gemm_case(M, K, N, trans_b, g, baseline)
+            for M in (SLOTS, prefill_m) for K, N, trans_b in GEMM_SHAPES]
     # the summary line carries the sums over one decode step's shapes
     # (M = slots), the case the serve loop runs most
     dec_rows = [r for r in rows if r["M"] == SLOTS]
@@ -735,6 +763,19 @@ def workload(cfg, seed: int = 0) -> list:
             for i, (p, b) in enumerate(zip(prompts, budgets))]
 
 
+def latency(stamps: dict[int, list[float]], t0: float) -> dict:
+    """ITL p50/p95 over the gaps between a request's token stamps, and
+    TTFT p50 from ``t0``, in ms."""
+    itl = sorted(b - a for ts in stamps.values() for a, b in zip(ts, ts[1:]))
+    ttft = sorted(ts[0] - t0 for ts in stamps.values())
+
+    def pct(xs, p):
+        return xs[min(len(xs) - 1, int(len(xs) * p))] * 1e3
+
+    return dict(itl_p50_ms=pct(itl, 0.5), itl_p95_ms=pct(itl, 0.95),
+                ttft_p50_ms=pct(ttft, 0.5))
+
+
 def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str = "off",
                max_len: int = MAX_LEN, decode_block: int | None = BS):
     kv = (KVConfig(layout="paged", block_size=BS) if layout == "paged"
@@ -770,18 +811,11 @@ def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str
         eng.pool.assert_invariants(eng.live_block_refs())
         if eng.pool.free_blocks != eng.pool.num_blocks - 1:
             fail(f"{layout}/{matmul}: blocks leaked after drain")
-    itl = sorted(b - a for ts in stamps.values() for a, b in zip(ts, ts[1:]))
-    ttft = sorted(ts[0] - t0 for ts in stamps.values())
     n_tok = sum(len(t) for t in toks)
-
-    def pct(xs, p):
-        return xs[min(len(xs) - 1, int(len(xs) * p))] * 1e3
-
     res = dict(
         layout=layout, matmul=matmul, abft=abft_mode, tokens=n_tok, wall_s=wall,
         tok_per_s=n_tok / wall, sdc_detected=eng.stats["sdc_detected"],
-        itl_p50_ms=pct(itl, 0.5), itl_p95_ms=pct(itl, 0.95), ttft_p50_ms=pct(ttft, 0.5),
-        launches=launches, peak_active=eng.stats["peak_active"],
+        **latency(stamps, t0), launches=launches, peak_active=eng.stats["peak_active"],
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )
     print(f"serve {layout:10s} matmul={matmul:6s} abft={abft_mode}: {n_tok} tokens in {wall:.3f} s "
@@ -1037,6 +1071,320 @@ def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) 
         print(f"weight flip in leaf {leaf}: SDCUnlocalizedError ({e}), nothing emitted",
               flush=True)
     out["weight_flip_leaf"] = leaf
+    return out
+
+
+# ------------------------------------------------------- scheduling phase --
+
+SCHED_CHUNK = 256                 # the lane's chunk and token budget, (b)
+URGENT_AT, N_URGENT = 20, 4       # priority-2 arrivals after step 20, (a)
+DEADLINE_STEPS = 20               # (c)
+STATIC_PROMPT, STATIC_NEW = 128, 32   # (d): eight equal prompts
+
+
+def urgent_requests(cfg, seed: int = 10) -> list:
+    """The priority-2 arrivals of (a): prompts of 64-192 tokens, 32 new
+    tokens each, ids after the phase-3 workload's."""
+    rng = torch.Generator().manual_seed(seed)
+    out = []
+    for i in range(N_URGENT):
+        n = int(torch.randint(64, 193, (1,), generator=rng))
+        prompt = torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype(np.int32)
+        out.append(Request(prompt, max_new=32, request_id=100 + i, priority=2))
+    return out
+
+
+def blocks_to_admit(reqs: list) -> int:
+    """Pool blocks, the sink included, that admitting ``reqs`` in order
+    takes with prefix sharing: the engine's own host-side commit
+    (``_commit_row`` and ``_register_chain``) on a pool that never starves."""
+    pool = kvcache.BlockPool(1 << 16, BS)
+    host = types.SimpleNamespace(
+        pool=pool, scfg=ServeConfig(max_len=MAX_LEN, kv=KVConfig(layout="paged", block_size=BS)))
+    for r in reqs:
+        info = types.SimpleNamespace(prompt=np.asarray(r.prompt, np.int32), budget=r.max_new)
+        Engine._register_chain(host, info, Engine._commit_row(host, info))
+    return pool.num_blocks - pool.free_blocks
+
+
+def prefill_invariance(cfg, params, reqs: list, j: int = 3) -> list[dict]:
+    """Whether a prefill row's bits depend on its admission's shape: request
+    ``j`` of the 8-prompt admission group ``reqs`` prefilled in the group
+    (the bucket of the longest prompt), alone (its own bucket, as a
+    preempted request re-prefills) and through the lane (256-token chunks
+    from the cache cursor).  Per GEMM route and with the fixed-shape pieces
+    on (``q_block``, what the engine runs) and off: whether every layer's
+    K and V at the prompt's positions and the first-token logits are the
+    same bits, and the first layer whose K differs; and the host wall time
+    of the group's prefill call (second of two calls, ending in a sync):
+    what the pieces cost an admission."""
+    from repro_torch.serve.engine import PREFILL_Q_BLOCK
+
+    model = build(cfg)
+    plens = [len(r.prompt) for r in reqs]
+    bucket = lambda n: -(-n // 16) * 16  # noqa: E731
+    pj = plens[j]
+
+    def prefill(prompts, lpad, d):
+        toks = np.zeros((len(prompts), lpad), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, : len(p)] = p
+        tl = torch.tensor([len(p) - 1 for p in prompts], device=DEV)
+        caches = kvcache.build_caches(cfg, len(prompts), MAX_LEN, DEV)
+        logits, _ = model.prefill(params, torch.from_numpy(toks).to(DEV), caches,
+                                  last_index=tl, dispatch=d)
+        return logits, caches
+
+    def lane(prompt, d):
+        caches = kvcache.build_caches(cfg, 1, MAX_LEN, DEV)
+        for lo in range(0, len(prompt), SCHED_CHUNK):
+            part = prompt[lo : lo + SCHED_CHUNK]
+            toks = np.zeros((1, SCHED_CHUNK), np.int32)
+            toks[0, : len(part)] = part
+            li = torch.tensor([len(part) - 1], device=DEV)
+            logits, _ = model.prefill(params, torch.from_numpy(toks).to(DEV), caches,
+                                      last_index=li, dispatch=d, from_cursor=True)
+        return logits, caches
+
+    rows = []
+    for matmul in ("pallas", "xla"):
+        for qb in (PREFILL_Q_BLOCK, None):
+            d = L.Dispatch(matmul=matmul, q_block=qb)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                g_logits, g_c = prefill([r.prompt for r in reqs], bucket(max(plens)), d)
+                torch.cuda.synchronize()
+                group_ms = (time.perf_counter() - t0) * 1e3
+            for how, (o_logits, o_c) in (("alone", prefill([reqs[j].prompt], bucket(pj), d)),
+                                         ("lane", lane(reqs[j].prompt, d))):
+                kk = [torch.equal(g_c["k"][i, j, :pj], o_c["k"][i, 0, :pj])
+                      for i in range(cfg.n_layers)]
+                vv = [torch.equal(g_c["v"][i, j, :pj], o_c["v"][i, 0, :pj])
+                      for i in range(cfg.n_layers)]
+                row = dict(matmul=matmul, q_block=qb, against_group=how, group_ms=group_ms,
+                           k_equal=all(kk),
+                           v_equal=all(vv),
+                           logits_equal=torch.equal(g_logits[j], o_logits[0]),
+                           logits_max_diff=float((g_logits[j].float()
+                                                  - o_logits[0].float()).abs().max()),
+                           first_k_layer_differs=next(
+                               (i for i, e in enumerate(kk) if not e), None))
+                rows.append(row)
+                print(f"prefill row bits, matmul={matmul} q_block={qb}, {how} vs the 8-prompt "
+                      f"group: K {row['k_equal']}, V {row['v_equal']}, logits "
+                      f"{row['logits_equal']} (max diff {row['logits_max_diff']:.3e}), first "
+                      f"layer whose K differs {row['first_k_layer_differs']}; the group's "
+                      f"prefill {group_ms:.1f} ms", flush=True)
+            del g_c
+    return rows
+
+
+def sched_run(cfg, params, reqs: list, tag: str, *, layout: str = "contiguous",
+              matmul: str = "pallas", urgent: list = (), num_blocks: int | None = None,
+              **sched) -> tuple[dict, list, Engine]:
+    """Drive ``reqs`` (and ``urgent`` after step ``URGENT_AT``) through an
+    engine step by step with 8 slots at ``max_len`` 1024: the wall time,
+    ITL/TTFT, the kernels' launch counts (set to 0 just before, read just
+    after), the steps that re-prefilled or replayed a preempted request
+    and their share of the wall time."""
+    kv = (KVConfig(layout="paged", block_size=BS, num_blocks=num_blocks)
+          if layout == "paged" else KVConfig(decode_block=BS))
+    scfg = ServeConfig(
+        max_len=MAX_LEN,
+        scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16, **sched),
+        kv=kv, kernel=KernelConfig(matmul=matmul, attention="flash"),
+    )
+    eng = Engine(cfg, params, scfg, device=DEV)
+    stamps: dict[int, list[float]] = {}
+
+    def on_token(rid, tok, idx, done):
+        stamps.setdefault(rid, []).append(time.perf_counter())
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    at_arrival = None
+    replay_steps, replay_s, steps = 0, 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    while True:
+        if urgent and eng._step_no == URGENT_AT:
+            at_arrival = dict(free_slots=len(eng._free), active=len(eng._slots),
+                              free_blocks=None if eng.pool is None else eng.pool.free_blocks)
+            for r in urgent:
+                eng.submit(r)
+        before = (eng.stats["recovered"], eng.stats["replayed"])
+        ts = time.perf_counter()
+        alive = eng.step(on_token)  # a step ends in the tokens' copy to the host
+        dt = time.perf_counter() - ts
+        steps += 1
+        if (eng.stats["recovered"], eng.stats["replayed"]) != before:
+            replay_steps += 1
+            replay_s += dt
+        if not alive:
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    outs = [eng.pop_result(r.request_id) for r in list(reqs) + list(urgent)]
+    toks = [o.tolist() for o in outs]
+    if not all(0 <= t < cfg.vocab for row in toks for t in row):
+        fail(f"{tag}: a token is out of the vocabulary")
+    if eng.pool is not None:
+        eng.pool.assert_invariants(eng.live_block_refs())
+        if eng.pool.free_blocks != eng.pool.num_blocks - 1:
+            fail(f"{tag}: blocks leaked after drain")
+    need = ["flash_decode_paged" if layout == "paged" else "flash_decode"]
+    if matmul == "pallas":
+        need.append("gemm_bf16")
+    for n in need:
+        if launches[n] <= 0:
+            fail(f"{tag}: kernel {n} was never launched")
+    n_tok = sum(len(t) for t in toks)
+    first = {r.request_id for r in reqs}
+    res = dict(
+        tag=tag, layout=layout, matmul=matmul, num_blocks=num_blocks, **sched,
+        tokens=n_tok, steps=steps, wall_s=wall, tok_per_s=n_tok / wall,
+        **latency({k: v for k, v in stamps.items() if k in first}, t0),
+        statuses=[o.status.value for o in outs], launches=launches,
+        peak_active=eng.stats["peak_active"], preempted=eng.stats["preempted"],
+        recovered=eng.stats["recovered"], replayed=eng.stats["replayed"],
+        replay_steps=replay_steps, replay_s=replay_s, replay_share=replay_s / wall,
+        expired=eng.stats["expired"], at_arrival=at_arrival,
+    )
+    print(f"{tag}: {n_tok} tokens in {steps} steps, {wall:.3f} s = {res['tok_per_s']:.1f} tok/s, "
+          f"ITL p50 {res['itl_p50_ms']:.2f} ms p95 {res['itl_p95_ms']:.2f} ms, TTFT p50 "
+          f"{res['ttft_p50_ms']:.1f} ms; preempted {res['preempted']}, recovered "
+          f"{res['recovered']}, replayed {res['replayed']} tokens in {replay_steps} steps "
+          f"({replay_s:.3f} s, {100 * res['replay_share']:.1f}% of the wall)"
+          + (f"; at the arrival {at_arrival}" if at_arrival else "")
+          + f"; launches {launches}", flush=True)
+    return res, toks, eng
+
+
+def sched_phase(cfg, params, reqs: list, oracle: dict, mono: dict, totals: dict,
+                card: str) -> dict:
+    """Phase 10, (a)-(d) of the module docstring.  ``oracle`` holds the
+    phase-3 tokens and ``mono`` the phase-3 runs by (layout, matmul)."""
+    out: dict = {}
+
+    def run(tag, **kw):
+        res, toks, eng = sched_run(cfg, params, kw.pop("reqs", reqs), tag, **kw)
+        for n, c in res["launches"].items():
+            totals[n] += c
+        return res, toks, eng
+
+    def finished(res, toks, rs, tag):
+        bad = [(r.request_id, st, len(t)) for r, st, t in zip(rs, res["statuses"], toks)
+               if st != "FINISHED" or len(t) != r.max_new]
+        if bad:
+            fail(f"{tag}: requests did not finish their budgets: {bad}")
+
+    print(f"-- (a) preemption: {N_URGENT} priority-2 arrivals after step {URGENT_AT} "
+          f"over the phase-3 workload ({card})", flush=True)
+    out["prefill_invariance"] = prefill_invariance(cfg, params, reqs[:SLOTS])
+    urgent = urgent_requests(cfg)
+    nb = blocks_to_admit(reqs[:SLOTS - 1])
+    out["preempt"] = []
+    for layout in ("contiguous", "paged"):
+        tag = f"preempt/{layout}/pallas"
+        try:
+            res, toks, _ = run(tag, layout=layout, urgent=urgent,
+                               num_blocks=nb if layout == "paged" else None)
+        except ReplayDivergedError as e:
+            fail(f"{tag}: {e}")
+        finished(res, toks, list(reqs) + urgent, tag)
+        if toks[: len(reqs)] != oracle[(layout, "pallas")]:
+            fail(f"{tag}: preempted requests' tokens differ from the uninterrupted run")
+        if res["preempted"] < N_URGENT or res["recovered"] != res["preempted"]:
+            fail(f"{tag}: preempted {res['preempted']}, recovered {res['recovered']} "
+                 f"(want >= {N_URGENT}, all recovered)")
+        if layout == "paged" and not res["at_arrival"]["free_slots"]:
+            fail(f"{tag}: no slot was free at the arrival, so blocks did not starve it")
+        print(f"{tag}: {res['preempted']} preemptions, every original request's tokens "
+              f"== the uninterrupted run's", flush=True)
+        out["preempt"].append(res)
+    # the C1 probe: the same under cuBLAS projections; a divergence raises in
+    # the engine and is reported here, not retried
+    tag = "preempt/contiguous/xla"
+    try:
+        res, toks, _ = run(tag, matmul="xla", urgent=urgent)
+        held = toks[: len(reqs)] == oracle[("contiguous", "xla")]
+        probe = dict(res, held=held, error=None)
+    except ReplayDivergedError as e:
+        probe = dict(held=False, error=str(e))
+    print(f"{tag}: replay held under matmul='xla': {probe['held']}"
+          + (f" ({probe['error']})" if probe["error"] else ""), flush=True)
+    out["xla_probe"] = probe
+
+    print(f"-- (b) the chunked-prefill lane: prefill_chunk {SCHED_CHUNK}, in turns with "
+          f"monolithic admission ({card})", flush=True)
+    out["lane"] = []
+    for layout in ("contiguous", "paged"):
+        p3 = mono[(layout, "pallas")]
+        for budget in (SCHED_CHUNK, "mono", None):
+            tag = f"lane/{layout}/budget={budget}"
+            if budget == "mono":
+                tag = f"monolithic/{layout}"
+                res, toks, _ = run(tag, layout=layout)
+            else:
+                res, toks, _ = run(tag, layout=layout, prefill_chunk=SCHED_CHUNK,
+                                   token_budget=budget)
+            finished(res, toks, reqs, tag)
+            if toks != oracle[(layout, "pallas")]:
+                fail(f"{tag}: tokens differ from phase 3's monolithic admission")
+            print(f"{tag}: tokens == phase 3's; ITL p50/p95 {res['itl_p50_ms']:.2f}/"
+                  f"{res['itl_p95_ms']:.2f} ms, TTFT p50 {res['ttft_p50_ms']:.1f} ms (phase 3 "
+                  f"monolithic {p3['itl_p50_ms']:.2f}/{p3['itl_p95_ms']:.2f}, "
+                  f"{p3['ttft_p50_ms']:.1f})", flush=True)
+            out["lane"].append(res)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    out["gemm_chunk"] = [gemm_case(SCHED_CHUNK, K, N, t, g) for K, N, t in GEMM_SHAPES]
+
+    print(f"-- (c) deadlines: {DEADLINE_STEPS} steps on four phase-3 requests", flush=True)
+    dreqs = [dataclasses.replace(r, deadline_steps=DEADLINE_STEPS) for r in reqs[:4]]
+    res, toks, _ = run("deadline/contiguous/pallas", reqs=dreqs)
+    for r, st, t, want in zip(dreqs, res["statuses"], toks, oracle[("contiguous", "pallas")]):
+        if st != "FAILED" or not 1 <= len(t) < r.max_new or t != want[: len(t)]:
+            fail(f"deadline: request {r.request_id} ended {st} with {len(t)} tokens, "
+                 f"not a FAILED prefix of its uninterrupted tokens")
+    print(f"deadline: all four FAILED after {[len(t) for t in toks]} tokens, each a prefix "
+          f"of the uninterrupted run", flush=True)
+    out["deadline"] = res
+
+    print(f"-- (d) StaticEngine: eight prompts of {STATIC_PROMPT} tokens, {STATIC_NEW} new "
+          f"({card})", flush=True)
+    rng = torch.Generator().manual_seed(11)
+    sreqs = [Request(torch.randint(0, cfg.vocab, (STATIC_PROMPT,), generator=rng).numpy()
+                     .astype(np.int32), max_new=STATIC_NEW, request_id=200 + i)
+             for i in range(SLOTS)]
+    res, toks, _ = run("static-baseline/engine", reqs=sreqs)
+    finished(res, toks, sreqs, "static-baseline/engine")
+    stat = StaticEngine(cfg, params, ServeConfig(
+        max_len=MAX_LEN, scheduler=SchedulerConfig(batch=SLOTS),
+        kv=KVConfig(decode_block=BS), kernel=KernelConfig(matmul="pallas")), device=DEV)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stoks = [o.tolist() for o in stat.generate(sreqs)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    for n in ("flash_decode", "gemm_bf16"):
+        if launches[n] <= 0:
+            fail(f"StaticEngine: kernel {n} was never launched")
+    for n, c in launches.items():
+        totals[n] += c
+    if stoks != toks:
+        fail("StaticEngine's greedy tokens differ from Engine's")
+    n_tok = sum(len(t) for t in stoks)
+    out["static"] = dict(tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall,
+                         launches=launches, engine_tok_per_s=res["tok_per_s"])
+    print(f"StaticEngine: tokens == Engine's; {n_tok / wall:.1f} tok/s against Engine's "
+          f"{res['tok_per_s']:.1f} ({card}); launches {launches}", flush=True)
     return out
 
 
@@ -2035,9 +2383,11 @@ def main() -> None:
         print(card)
         print(json.dumps({"gemm": {k: results[k] for k in ("gemm_bf16", "gemm_bf16_abft")}}))
         return
-    print("== kernels against their plain versions", flush=True)
-    check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
-                 [0, 1, 17, 100, 255, 300, 777, 1024])
+    sched_only = sys.argv[1:] == ["--sched"]
+    if not sched_only:
+        print("== kernels against their plain versions", flush=True)
+        check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
+                     [0, 1, 17, 100, 255, 300, 777, 1024])
     if sys.argv[1:] == ["--decode"]:
         # decode attention alone: phase 2's shape, 7 (a)'s and 8 (c)'s
         check_decode_d256(results, get("recurrentgemma-2b"))
@@ -2047,8 +2397,9 @@ def main() -> None:
         print(json.dumps({"decode": results}))
         return
     cfg = get("smollm-360m")
-    check_gemm(results, prefill_m=prefill_m)
-    check_gemm_abft(results, prefill_m=prefill_m)
+    if not sched_only:
+        check_gemm(results, prefill_m=prefill_m)
+        check_gemm_abft(results, prefill_m=prefill_m)
 
     print("== serve smollm-360m (full width, random weights)", flush=True)
     params = build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
@@ -2058,6 +2409,8 @@ def main() -> None:
     totals = {n: 0 for n in WRAPPERS}
     for matmul in ("xla", "pallas"):
         for layout in ("contiguous", "paged"):
+            if sched_only and (layout, matmul) == ("paged", "xla"):
+                continue  # --sched needs the oracles of phase 10 alone
             res, toks, _ = serve_once(cfg, params, layout, matmul, reqs)
             runs.append(res)
             tokens[(layout, matmul)] = toks
@@ -2069,15 +2422,27 @@ def main() -> None:
                     fail(f"{layout}/{matmul}: kernel {n} was never launched on the serve path")
             for n, c in res["launches"].items():
                 totals[n] += c
-        if tokens[("paged", matmul)] != tokens[("contiguous", matmul)]:
-            fail(f"matmul={matmul}: paged tokens differ from contiguous tokens")
-        print(f"matmul={matmul}: paged tokens == contiguous tokens", flush=True)
+        if ("paged", matmul) in tokens:
+            if tokens[("paged", matmul)] != tokens[("contiguous", matmul)]:
+                fail(f"matmul={matmul}: paged tokens differ from contiguous tokens")
+            print(f"matmul={matmul}: paged tokens == contiguous tokens", flush=True)
+    mono = {(r["layout"], r["matmul"]): r for r in runs}
+    if sched_only:
+        print("== scheduling at full width", flush=True)
+        sched = sched_phase(cfg, params, reqs, tokens, mono, totals, card)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"sched": sched, "launches": totals}))
+        return
 
     print("== where a decode step's time goes", flush=True)
     prof = profile_decode(cfg, params, reqs, focus=(GEMM_KERNEL,))
 
     print("== SDC defense (abft), full width, paged KV", flush=True)
     sdc = sdc_phase(cfg, params, reqs, runs[-1], tokens[("paged", "pallas")], totals)
+
+    print("== scheduling at full width", flush=True)
+    sched = sched_phase(cfg, params, reqs, tokens, mono, totals, card)
 
     print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
     convs = conv_phase(totals, results)
@@ -2102,7 +2467,7 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
-             serve=runs, decode_profile=prof, sdc=sdc, conv=convs, rwkv=rwkv,
+             serve=runs, decode_profile=prof, sdc=sdc, sched=sched, conv=convs, rwkv=rwkv,
              recurrentgemma=rgemma,
              seconds=time.perf_counter() - t_start),
         indent=1))

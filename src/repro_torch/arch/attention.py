@@ -9,7 +9,9 @@
                      ``decode_lengths`` and ``decode_impl="flash"``.
 
 Prefill attention is plain torch einsum/softmax, as the reference's is
-plain jnp outside Pallas.  All paths take grouped-query tensors
+plain jnp outside Pallas.  Given ``q_block``, :func:`attend` runs it in
+fixed-shape pieces (:func:`attend_pieces`), so a row's bits do not depend
+on how many rows or queries the call holds.  All paths take grouped-query tensors
 ``q: (B, Tq, KV, G, hd)``, ``k/v: (B, Tk, KV, hd)`` and return
 ``(B, Tq, KV, G, hd)``.  Rounding follows the reference: a bf16 einsum
 returns bf16 scores, which are then cast to fp32.
@@ -22,6 +24,9 @@ import math
 import torch
 
 NEG_INF = -1e30
+# pieces of (one row, q_block queries) that one call of attend_pieces
+# computes together; short calls are filled up with copies of a piece
+PIECES_PER_CALL = 8
 
 
 def _bias_block(
@@ -137,6 +142,56 @@ def blockwise_attention(
     return out[:, :Tq]
 
 
+def attend_pieces(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    causal: bool,
+    window: int | None,
+    q_block: int,
+    dense_threshold: int,
+) -> torch.Tensor:
+    """Attention computed in pieces of one row's ``q_block`` queries (the
+    last one padded with copies of its final query), ``PIECES_PER_CALL`` of
+    them a call (the last call filled up with copies of a piece), so every
+    product, softmax and mask runs at one shape whatever the caller's batch
+    and query count: a row's result is the same bits in a batched
+    admission, a lone re-prefill and a chunk of a longer prompt.  Each
+    piece's arithmetic is the dense (or blockwise) path's."""
+    B, Tq, KV, G, hd = q.shape
+    Tk = k.shape[1]
+    nb = -(-Tq // q_block)
+    pad = nb * q_block - Tq
+    qp = q_pos if q_pos.ndim == 2 else q_pos[None].expand(B, Tq)
+    kp = k_pos if k_pos.ndim == 2 else k_pos[None].expand(B, Tk)
+    if pad:
+        q = torch.cat([q, q[:, -1:].expand(B, pad, KV, G, hd)], 1)
+        qp = torch.cat([qp, qp[:, -1:].expand(B, pad)], 1)
+    n = B * nb
+    fill = (-n) % PIECES_PER_CALL
+    pieces = q.reshape(n, q_block, KV, G, hd)
+    piece_pos = qp.reshape(n, q_block)
+    rows = torch.arange(B, device=q.device).repeat_interleave(nb)
+    if fill:
+        pieces = torch.cat([pieces, pieces[-1:].expand(fill, *pieces.shape[1:])])
+        piece_pos = torch.cat([piece_pos, piece_pos[-1:].expand(fill, q_block)])
+        rows = torch.cat([rows, rows[-1:].expand(fill)])
+    path = dense_attention if q_block * Tk <= dense_threshold else blockwise_attention
+    outs = []
+    for c in range(0, n + fill, PIECES_PER_CALL):
+        r = rows[c : c + PIECES_PER_CALL]
+        outs.append(path(
+            pieces[c : c + PIECES_PER_CALL], k[r], v[r],
+            q_pos=piece_pos[c : c + PIECES_PER_CALL], k_pos=kp[r],
+            causal=causal, window=window,
+        ))
+    out = torch.cat(outs)[:n].reshape(B, nb * q_block, KV, G, hd)
+    return out[:, :Tq]
+
+
 def attend(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -152,18 +207,28 @@ def attend(
     decode_lengths: torch.Tensor | None = None,
     decode_impl: str | None = None,
     decode_block: int | None = None,
+    q_block: int | None = None,
 ) -> torch.Tensor:
     """Dense vs blockwise by live-score size, or, for cached single-token
     decode with per-row ``decode_lengths`` and ``decode_impl="flash"``, the
     ragged decode kernel (``kernels.flash_attention.ops.decode_attention``).
     That kernel masks only by slot index < length, which equals the full
     causal + window + empty-slot mask under the serve ring invariant; the
-    masked dense path stays its oracle."""
+    masked dense path stays its oracle.  With ``q_block`` (a prefill that
+    must not depend on its call's shape) the pieces of
+    :func:`attend_pieces`."""
     Tq, Tk = q.shape[1], k.shape[1]
     if decode_lengths is not None and decode_impl == "flash" and Tq == 1:
         from repro_torch.kernels.flash_attention.ops import decode_attention
 
         return decode_attention(q[:, 0], k, v, decode_lengths, bk=decode_block)[:, None]
+    if q_block is not None:
+        if kv_len is not None:
+            raise ValueError("attend_pieces masks by position only (kv_len must be None)")
+        return attend_pieces(
+            q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal, window=window,
+            q_block=q_block, dense_threshold=dense_threshold,
+        )
     if Tq * Tk <= dense_threshold:
         return dense_attention(
             q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal, window=window,

@@ -40,11 +40,19 @@ class Dispatch:
     (``kernels.abft.AbftTrace``) or None.  With a trace, every projection
     runs through ``trace.mm`` (checksummed; through the checksum GEMM under
     ``matmul="pallas"``) and every paged decode-attention output is
-    fingerprinted, where the reference installs ``layers.abft_override``."""
+    fingerprinted, where the reference installs ``layers.abft_override``.
+    ``q_block``: None, or a prefill whose rows' bits do not depend on the
+    admission's shape (how many prompts, how long, or which chunk of a
+    longer prompt): attention runs in fixed pieces of ``q_block`` queries
+    of one row (``attention.attend``) and ``Model.prefill`` normalizes and
+    unembeds each prompt's last row alone.  With an M-invariant GEMM
+    (``matmul="pallas"``, or the CPU) a preempted request's re-prefill and
+    a chunked prefill then reproduce monolithic admission bit for bit."""
 
     matmul: str = "xla"
     attention: str | None = None
     decode_block: int | None = None
+    q_block: int | None = None
     trace: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
@@ -56,6 +64,8 @@ class Dispatch:
             )
         if self.decode_block is not None and self.decode_block < 1:
             raise ValueError(f"decode block must be >= 1: {self.decode_block!r}")
+        if self.q_block is not None and self.q_block < 1:
+            raise ValueError(f"q_block must be >= 1: {self.q_block!r}")
 
 
 PLAIN = Dispatch()
@@ -266,7 +276,7 @@ def multihead_attention(
         qg, k, v, q_pos=positions, k_pos=k_pos, causal=causal,
         window=window, causal_skip=skip_ok,
         decode_lengths=decode_lengths, decode_impl=dispatch.attention,
-        decode_block=dispatch.decode_block,
+        decode_block=dispatch.decode_block, q_block=dispatch.q_block,
     ).reshape(B, Tq, h * hd)
     return _mm(ctx, params["wo"], dispatch), cache
 

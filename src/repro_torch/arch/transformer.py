@@ -260,22 +260,37 @@ class Model:
         caches: dict,
         last_index: torch.Tensor | None = None,
         dispatch: L.Dispatch = L.PLAIN,
+        from_cursor: bool = False,
     ) -> tuple[torch.Tensor, dict]:
         """last_index: per-row index of the last real token, for prompts
         right-padded to a bucket length (default: the final position).
+        ``from_cursor``: the tokens continue prompts already in ``caches``
+        (a chunk of the chunked-prefill lane), so positions start at each
+        row's ``len`` cursor rather than at 0, as the reference's
+        ``logits_fn(positions=None)`` derives them.
 
         The reference unembeds every position and then selects one row per
         prompt; the final norm and the unembedding are row-wise, so this
-        selects first and unembeds only the rows it returns."""
+        selects first and unembeds only the rows it returns.  With
+        ``dispatch.q_block`` set it normalizes and unembeds each row alone,
+        so the row's bits do not depend on how many prompts the call holds."""
         x = L.embed(params["embed"], tokens)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        positions = None
+        if not from_cursor:
+            positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         x = self._backbone(params, x, positions, caches, dispatch)
         if last_index is None:
             x = x[:, -1]
         else:
             x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
+        if dispatch.q_block is not None:
+            return torch.cat([self._head(params, x[i : i + 1], dispatch)
+                              for i in range(x.shape[0])]), caches
+        return self._head(params, x, dispatch), caches
+
+    def _head(self, params: dict, x: torch.Tensor, dispatch: L.Dispatch) -> torch.Tensor:
         x = L.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
-        return L.unembed(params["embed"], x, dispatch), caches
+        return L.unembed(params["embed"], x, dispatch)
 
     def decode_step(
         self,

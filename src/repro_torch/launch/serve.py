@@ -1,5 +1,7 @@
 """Serving launcher on the port's continuous-batching engine; port of
-``repro/launch/serve.py`` without the flags of unported features.
+``repro/launch/serve.py`` without the flags of unported features
+(``--snapshot-dir``, ``--resume``: ROADMAP A8; ``--autotune``,
+``--concurrency``: A6c).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
@@ -7,8 +9,10 @@
 
 Generates a mixed-length synthetic workload with random weights, streams
 tokens through the engine, and reports throughput plus per-token latency.
-Runs on the card (``--device cuda``, the default; it fails when no card is
-visible) or, asked explicitly, on the CPU with the plain versions.
+``--static`` runs the padded static-batch baseline instead (same workload,
+same slot count) for an A/B on the spot.  Runs on the card (``--device
+cuda``, the default; it fails when no card is visible) or, asked
+explicitly, on the CPU with the plain versions.
 """
 
 from __future__ import annotations
@@ -28,11 +32,14 @@ from repro_torch.serve.engine import (
     Request,
     SchedulerConfig,
     ServeConfig,
+    StaticEngine,
     resolve_device,
 )
 
 
-def make_workload(cfg, n: int, max_new: int, seed: int = 0) -> list[Request]:
+def make_workload(
+    cfg, n: int, max_new: int, seed: int = 0, deadline: int | None = None
+) -> list[Request]:
     """The reference's ``make_workload``, draw for draw (same numpy
     generator calls), so both engines serve identical requests."""
     rng = np.random.default_rng(seed)
@@ -41,6 +48,7 @@ def make_workload(cfg, n: int, max_new: int, seed: int = 0) -> list[Request]:
             rng.integers(0, cfg.vocab, rng.integers(3, 16)).astype(np.int32),
             max_new=int(rng.integers(max(2, max_new // 4), max_new + 1)),
             request_id=i,
+            deadline_steps=deadline,
         )
         for i in range(n)
     ]
@@ -94,10 +102,31 @@ def main(argv=None):
     ap.add_argument("--no-prefix-sharing", action="store_true")
     ap.add_argument("--max-waiting", type=int, default=None)
     ap.add_argument("--stall-patience", type=int, default=64)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="unified scheduler: split admission prefills into "
+                         "fixed chunks of this many tokens and interleave "
+                         "them with decode steps (0 = monolithic admission, "
+                         "the bitwise oracle; max-len must be a multiple)")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="max prefill tokens advanced per engine step "
+                         "(requires --prefill-chunk; default unlimited). "
+                         "Lower budgets flatten decode ITL under admission "
+                         "storms at the cost of TTFT")
+    ap.add_argument("--deadline-steps", type=int, default=None,
+                    help="per-request deadline in engine steps; expired "
+                         "requests end FAILED with their partial output")
+    ap.add_argument("--static", action="store_true",
+                    help="run the padded static-batch baseline instead")
     args = ap.parse_args(argv)
     if args.abft != "off" and args.kv_layout != "paged":
         ap.error("--abft localizes corruption through the paged pool's "
                  "per-block fingerprints (add --kv-layout paged)")
+    if args.static and args.kv_layout != "contiguous":
+        ap.error("--static serves the contiguous layout only (drop --kv-layout)")
+    if args.static and args.abft != "off":
+        ap.error("--abft needs the continuous engine's paged layout (drop --static)")
+    if args.token_budget is not None and not args.prefill_chunk:
+        ap.error("--token-budget requires --prefill-chunk")
 
     device = resolve_device(args.device)
     cfg = get(args.arch)
@@ -107,6 +136,7 @@ def main(argv=None):
         max_len=args.max_len, temperature=args.temperature, seed=args.seed,
         scheduler=SchedulerConfig(
             batch=args.slots, prefill_bucket=args.prefill_bucket,
+            prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
             max_waiting=args.max_waiting, stall_patience=args.stall_patience,
         ),
         kv=KVConfig(
@@ -119,8 +149,14 @@ def main(argv=None):
             abft=args.abft, scrub_every=args.scrub_every,
         ),
     )
-    reqs = make_workload(cfg, args.requests, args.new_tokens, args.seed)
-    eng = Engine(cfg, params, scfg, device=device)
+    reqs = make_workload(
+        cfg, args.requests, args.new_tokens, args.seed, deadline=args.deadline_steps
+    )
+    mode = "static" if args.static else "continuous"
+    if args.static:
+        eng = StaticEngine(cfg, params, scfg, device=device)
+    else:
+        eng = Engine(cfg, params, scfg, device=device)
 
     stamps: dict[int, list[float]] = {}
     t0 = time.perf_counter()
@@ -128,15 +164,22 @@ def main(argv=None):
     def on_token(rid, tok, idx, done):
         stamps.setdefault(rid, []).append(time.perf_counter() - t0)
 
-    outs = eng.run(reqs, on_token=on_token)
+    if args.static:
+        outs = eng.generate(reqs, on_token=on_token)
+    else:
+        outs = eng.run(reqs, on_token=on_token)
     dt = time.perf_counter() - t0
     total_new = sum(len(o) for o in outs)
     p50, p95 = latency_summary(stamps)
     print(
-        f"[continuous/{device.type}] served {len(reqs)} requests, {total_new} "
+        f"[{mode}/{device.type}] served {len(reqs)} requests, {total_new} "
         f"tokens, {dt:.2f}s ({total_new / dt:.1f} tok/s, per-token "
         f"p50={p50 * 1e3:.1f}ms p95={p95 * 1e3:.1f}ms)"
     )
+    if args.static:
+        for i, o in enumerate(outs):
+            print(f"  req{i}: {o.tolist()}")
+        return
     if args.abft != "off":
         st = eng.stats
         print(f"  abft={args.abft}: sdc_detected={st['sdc_detected']} "

@@ -1,9 +1,19 @@
-"""Seeded silent-data-corruption (SDC) episodes for the serve engine; port
-of the SDC part of ``repro/serve/chaos.py`` (l.1-245, 577-868).
+"""Seeded fault-injection episodes for the serve engine; port of
+``repro/serve/chaos.py`` without its crash episodes.
 
-An episode drives a seeded workload through an ABFT engine while injecting
-faults drawn from the same seed, and holds the engine to the
-detect -> localize -> retry -> quarantine contract:
+A **lifecycle episode** (:func:`run_episode`) drives a seeded workload with
+priorities and deadlines through an :class:`~repro_torch.serve.engine.Engine`
+while injecting faults drawn from the same seed: cancels in every live
+state (and idempotent re-cancels of terminal requests), forced
+preemptions of active or prefilling requests (release -> requeue ->
+re-prefill -> bitwise replay), and block-pressure spikes
+(``BlockPool.reserve`` withholds free blocks for a few steps), whose
+starved admissions the watchdog must shed rather than livelock on.
+
+An **SDC episode** (:func:`run_sdc_episode`) drives a seeded workload
+through an ABFT engine while injecting faults drawn from the same seed,
+and holds the engine to the detect -> localize -> retry -> quarantine
+contract:
 
   * transient **compute flips** ride the engine's fault operand
     (``Engine.arm_fault``): one bit of one GEMM output or one attention
@@ -24,11 +34,8 @@ one must be a prefix of it).  Sampling folds only ``(seed, request id,
 token index)``, so the unfaulted run is ground truth for any faulted
 interleaving.  Episodes are pure functions of ``(engine config, seed)``.
 
-Not ported yet: the lifecycle chaos episodes (``run_episode``) and the
-crash episodes (``run_crash_episode``), which wait for priorities,
-preemption and deadlines (ROADMAP A5a/A5b) and for recovery (A8).  The
-chunked-prefill lane (A5c) does not exist in the port, so :func:`audit`
-has no lane to check.
+Not ported yet: the crash episodes (``run_crash_episode``), which wait
+for recovery (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -103,19 +110,34 @@ def check_device_tables(eng: Engine) -> None:
 
 def audit(eng: Engine) -> None:
     """Ownership and status consistency, cheap enough after every step:
-    pool refcounts mirror live rows, device tables mirror host tables, and
-    every request id sits exactly where its status says."""
+    pool refcounts mirror live rows (the lane's and external reservations
+    included), device tables mirror host tables, and every request id sits
+    exactly where its status says."""
     if eng.pool is not None:
         eng.pool.assert_invariants(eng.live_block_refs())
         check_device_tables(eng)
     queued = set(eng._waiting)
     active = {st.rid for st in eng._slots.values()}
     assert not queued & active, f"rids both queued and active: {queued & active}"
+    prefilling = set()
+    if eng._lane is not None:
+        prefilling = {eng._lane.rid}
+        assert eng._lane.slot not in eng._slots, (
+            f"lane slot {eng._lane.slot} double-booked by an active row"
+        )
+        assert eng._lane.slot not in eng._free, (
+            f"lane slot {eng._lane.slot} still on the free ring"
+        )
+        assert not prefilling & (queued | active), (
+            f"rid {eng._lane.rid} PREFILLING but also scheduled elsewhere"
+        )
     for rid, info in eng._reqs.items():
-        if info.status == RequestStatus.WAITING:
-            assert rid in queued, f"rid {rid} WAITING but not queued"
+        if info.status in (RequestStatus.WAITING, RequestStatus.PREEMPTED):
+            assert rid in queued, f"rid {rid} {info.status} but not queued"
         elif info.status == RequestStatus.ACTIVE:
             assert rid in active, f"rid {rid} ACTIVE but holds no slot"
+        elif info.status == RequestStatus.PREFILLING:
+            assert rid in prefilling, f"rid {rid} PREFILLING but holds no lane"
         else:
             assert info.status in TERMINAL_STATUSES
             assert rid not in queued and rid not in active, (
@@ -124,9 +146,10 @@ def audit(eng: Engine) -> None:
 
 
 def oracle_outputs(oracle: Engine, reqs: list[Request]) -> dict[int, list[int]]:
-    """Ground-truth tokens per request: the same workload through an
-    unfaulted engine, which must share seed, temperature and max_len with
-    the faulted one."""
+    """Ground-truth tokens per request: the same workload, stripped of
+    deadlines and priorities (they change scheduling only, which sampling
+    does not depend on), through an unfaulted engine, which must share
+    seed, temperature and max_len with the faulted one."""
     bare = [Request(r.prompt, r.max_new_tokens, request_id=r.request_id) for r in reqs]
     outs = oracle.run(bare)
     for r, o in zip(bare, outs):
@@ -134,6 +157,183 @@ def oracle_outputs(oracle: Engine, reqs: list[Request]) -> dict[int, list[int]]:
             f"oracle run must finish everything: rid {r.request_id} ended {o.status}"
         )
     return {r.request_id: o.tolist() for r, o in zip(bare, outs)}
+
+
+# ------------------------------------------------------ lifecycle episodes --
+
+
+@dataclasses.dataclass
+class ChaosConfig:
+    """Fault-schedule knobs of a lifecycle episode; every random draw comes
+    from the episode's seeded generator, so the same (config, seed)
+    replays the same chaos."""
+
+    n_requests: int = 10
+    max_new: int = 8              # budgets drawn from [1, max_new]
+    share_p: float = 0.5          # fraction extending a shared prefix
+    p_cancel: float = 0.12        # per-step: cancel one live request
+    p_dead_cancel: float = 0.05   # per-step: re-cancel a terminal request
+    p_preempt: float = 0.12       # per-step: force-preempt one active
+    p_spike: float = 0.08         # per-step: start a block-pressure spike
+    spike_blocks: int = 6         # spike size upper bound
+    spike_steps: int = 5          # spike duration upper bound
+    p_deadline: float = 0.25      # per-request: attach a deadline
+    deadline_lo: int = 2
+    deadline_hi: int = 40
+    p_priority: float = 0.3       # per-request: non-zero priority (1..3)
+    burst_hi: int = 4             # submissions per step upper bound
+    max_steps: int = 1000         # drain bound (fail = livelock)
+
+
+@dataclasses.dataclass
+class EpisodeReport:
+    """What one lifecycle episode did, aggregated by the test matrix to
+    prove every fault type fired across the episode set."""
+
+    seed: int
+    steps: int
+    statuses: dict[str, int]
+    stats: dict[str, int]         # engine lifecycle counters (this episode's)
+
+
+def make_chaos_workload(
+    rng: np.random.Generator, vocab: int, max_len: int, ccfg: ChaosConfig
+) -> list[Request]:
+    """Mixed prompts (a slice sharing prefixes, sometimes exactly: tail
+    sharing and copy-on-write under fire), random budgets, deadlines on
+    ~``p_deadline`` of them and priorities on ~``p_priority``; the
+    reference's draws, in order."""
+    prefixes = [
+        rng.integers(0, vocab, int(rng.integers(8, max_len // 2))).astype(np.int32)
+        for _ in range(3)
+    ]
+    reqs = []
+    for i in range(ccfg.n_requests):
+        if rng.random() < ccfg.share_p:
+            pre = prefixes[int(rng.integers(len(prefixes)))]
+            extra = int(rng.integers(0, 6))  # 0 => identical prompt
+            prompt = np.concatenate([pre, rng.integers(0, vocab, extra).astype(np.int32)])
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(1, max_len - 8))).astype(np.int32)
+        deadline = None
+        if rng.random() < ccfg.p_deadline:
+            deadline = int(rng.integers(ccfg.deadline_lo, ccfg.deadline_hi))
+        priority = int(rng.integers(1, 4)) if rng.random() < ccfg.p_priority else 0
+        reqs.append(
+            Request(
+                prompt[: max_len - 4],
+                max_new=int(rng.integers(1, ccfg.max_new + 1)),
+                request_id=i,
+                priority=priority,
+                deadline_steps=deadline,
+            )
+        )
+    return reqs
+
+
+def run_episode(
+    eng: Engine,
+    oracle: dict[int, list[int]],
+    reqs: list[Request],
+    seed: int,
+    ccfg: ChaosConfig,
+) -> EpisodeReport:
+    """Drive one seeded lifecycle episode through ``eng`` (reused across
+    episodes: it must enter drained).  Audits ownership after every step,
+    then asserts a leak-free drain and bitwise oracle agreement: FINISHED
+    requests (preempted and recovered ones included) equal the oracle,
+    cancelled, expired and shed ones are prefixes of it."""
+    assert (
+        not eng._reqs and not eng._slots and not eng._waiting and eng._lane is None
+    ), "chaos episode needs a drained engine"
+    cmd = episode_header(
+        "fault", seed, "CHAOS_EPISODES", "tests/test_torch_chaos_lifecycle.py", "CHAOS_SEED"
+    )
+    rng = np.random.default_rng(seed)
+    stats0 = dict(eng.stats)  # engines are reused: report per-episode deltas
+    pending = list(rng.permutation(len(reqs)))
+    spikes: list[tuple[list[int], int]] = []   # (reserved blocks, expiry)
+    steps = 0
+    rids = [r.request_id for r in reqs]
+
+    def live(statuses):
+        return [r for r in rids if eng.status(r) in statuses]
+
+    while pending or eng._slots or eng._waiting or eng._lane is not None:
+        for _ in range(int(rng.integers(0, ccfg.burst_hi + 1))):
+            if pending:
+                eng.submit(reqs[pending.pop(0)])
+        # fault injection: host-side, between steps, fully seeded
+        if rng.random() < ccfg.p_cancel:
+            victims = live((
+                RequestStatus.WAITING, RequestStatus.ACTIVE,
+                RequestStatus.PREFILLING, RequestStatus.PREEMPTED,
+            ))
+            if victims:
+                eng.cancel(victims[int(rng.integers(len(victims)))])
+        if rng.random() < ccfg.p_dead_cancel:
+            dead = live(TERMINAL_STATUSES)
+            if dead:
+                rid = dead[int(rng.integers(len(dead)))]
+                before = eng.status(rid)
+                assert eng.cancel(rid) == before, "double-cancel not idempotent"
+                assert eng.status(rid) == before
+        if rng.random() < ccfg.p_preempt:
+            actives = live((RequestStatus.ACTIVE, RequestStatus.PREFILLING))
+            if actives:
+                eng.preempt(actives[int(rng.integers(len(actives)))])
+        if eng.pool is not None and rng.random() < ccfg.p_spike:
+            held = eng.pool.reserve(int(rng.integers(1, ccfg.spike_blocks + 1)))
+            if held:
+                expiry = steps + int(rng.integers(1, ccfg.spike_steps + 1))
+                spikes.append((held, expiry))
+        eng.step()
+        steps += 1
+        for held, expiry in [s for s in spikes if s[1] <= steps]:
+            eng.pool.unreserve(held)
+            spikes.remove((held, expiry))
+        audit(eng)
+        assert steps < ccfg.max_steps, (
+            f"chaos episode seed={seed} failed to drain in {steps} steps "
+            f"(livelock: watchdog or shedding broken?); repro: {cmd}"
+        )
+    for held, _ in spikes:
+        eng.pool.unreserve(held)
+    audit(eng)
+    if eng.pool is not None:
+        assert eng.pool.free_blocks == eng.pool.num_blocks - 1, (
+            f"chaos episode seed={seed} leaked "
+            f"{eng.pool.num_blocks - 1 - eng.pool.free_blocks} blocks; repro: {cmd}"
+        )
+
+    statuses: dict[str, int] = {}
+    for r in reqs:
+        res = eng.pop_result(r.request_id)
+        statuses[res.status.value] = statuses.get(res.status.value, 0) + 1
+        want = oracle[r.request_id]
+        got = res.tolist()
+        if res.status == RequestStatus.FINISHED:
+            assert got == want, (
+                f"chaos episode seed={seed} rid {r.request_id} "
+                f"(preemptions={res.preemptions}): FINISHED output {got} != "
+                f"oracle {want}; repro: {cmd}"
+            )
+        else:
+            # cancelled / expired / shed mid-flight: whatever was generated
+            # must still be the oracle's prefix, bitwise
+            assert got == want[: len(got)], (
+                f"chaos episode seed={seed} rid {r.request_id} ({res.status}): "
+                f"partial output {got} is not a prefix of oracle {want}; repro: {cmd}"
+            )
+    return EpisodeReport(
+        seed=seed,
+        steps=steps,
+        statuses=statuses,
+        stats={k: v - stats0.get(k, 0) for k, v in eng.stats.items()},
+    )
+
+
+# ------------------------------------------------------------ SDC episodes --
 
 
 @dataclasses.dataclass

@@ -65,7 +65,10 @@ and 1 and in place; WKV-6's (column blocks, a ring of 16-step chunks, a
 tree-ordered sum fixed by Dk) at every (Dk, Dv) pair across chunk edges,
 decays 0, 1 and 1e-30, misaligned operands and in place, a row of a
 B = 8, H = 32 call bitwise that row called alone; both kernels' own plans
-equal the Python mirrors.
+equal the Python mirrors.  The engine's scheduler runs there too, at the
+smoke config's size under ``matmul="pallas"``: the chunked-prefill lane
+gives monolithic admission's tokens and a preempted request replays to
+its uninterrupted tokens, bitwise at temperature 0.8.
 """
 
 import ctypes
@@ -1322,3 +1325,77 @@ def test_wkv6_misaligned_operands_take_four_byte_copies(cuda, T):
     aligned = wkv6_cuda(*(t.contiguous() for t in args))
     torch.cuda.synchronize()
     assert torch.equal(got[0], aligned[0]) and torch.equal(got[1], aligned[1])
+
+
+def _smoke_requests(cfg, spec, seed):
+    rng = np.random.default_rng(seed)
+    return [te.Request(rng.integers(0, cfg.vocab, n).astype(np.int32), max_new=m, request_id=i)
+            for i, (n, m) in enumerate(spec)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_engine_on_the_card_lane_equals_monolithic(cuda, layout):
+    """The chunked-prefill lane under the reference's (chunk, budget) grid
+    gives the tokens of monolithic admission bitwise at temperature 0.8
+    under ``matmul="pallas"``, both layouts, through the kernels."""
+    cfg = get("smollm-360m-smoke")  # its own head_dim 16
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    spec = [(5, 6), (37, 9), (3, 4), (23, 5), (58, 4), (12, 7)]
+    kv = te.KVConfig(layout="paged", block_size=16) if layout == "paged" \
+        else te.KVConfig(decode_block=16)
+    outs = {}
+    for chunk, budget in ((0, None), (8, 8), (16, 32), (64, None)):
+        scfg = te.ServeConfig(
+            max_len=64, temperature=0.8, seed=11, kv=kv,
+            scheduler=te.SchedulerConfig(batch=3, prefill_chunk=chunk, token_budget=budget),
+            kernel=te.KernelConfig(matmul="pallas"),
+        )
+        for w in (dec.flash_decode_cuda, dec.flash_decode_paged_cuda, matmul_cuda):
+            w.launches = 0
+        res = te.Engine(cfg, params, scfg).run(_smoke_requests(cfg, spec, 5))
+        assert [o.status for o in res] == [te.RequestStatus.FINISHED] * len(spec)
+        kern = dec.flash_decode_paged_cuda if layout == "paged" else dec.flash_decode_cuda
+        assert kern.launches > 0 and matmul_cuda.launches > 0
+        outs[(chunk, budget)] = [o.tolist() for o in res]
+    for key, toks in outs.items():
+        assert toks == outs[(0, None)], f"lane {key} differs from monolithic admission"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_engine_on_the_card_preempted_equals_uninterrupted(cuda, layout):
+    """Under ``matmul="pallas"`` at temperature 0.8: a request admitted in a
+    group of two, preempted after 5 steps, re-prefilled alone and replayed,
+    ends bitwise as the uninterrupted run; so does a victim of a
+    priority-5 arrival."""
+    cfg = get("smollm-360m-smoke")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    kv = te.KVConfig(layout="paged", block_size=16) if layout == "paged" \
+        else te.KVConfig(decode_block=16)
+
+    def run(batch, reqs, preempt_at=None, urgent=None):
+        scfg = te.ServeConfig(max_len=64, temperature=0.8, seed=13, kv=kv,
+                              scheduler=te.SchedulerConfig(batch=batch, prefill_bucket=16),
+                              kernel=te.KernelConfig(matmul="pallas"))
+        eng = te.Engine(cfg, params, scfg)
+        for r in reqs:
+            eng.submit(r)
+        steps = 0
+        while eng.step():
+            steps += 1
+            if steps == preempt_at:
+                assert eng.preempt(0)
+            if urgent is not None and steps == 2:
+                eng.submit(urgent)
+        return [eng.pop_result(r.request_id) for r in reqs], eng.stats
+
+    reqs = _smoke_requests(cfg, [(11, 14), (11, 12)], 7)
+    want, _ = run(2, reqs)
+    got, stats = run(2, reqs, preempt_at=5)
+    assert stats["preempted"] == stats["recovered"] == 1 and stats["replayed"] == 5
+    assert [g.tolist() for g in got] == [w.tolist() for w in want]
+    urgent = te.Request(np.arange(1, 9, dtype=np.int32), max_new=4, request_id=9, priority=5)
+    got, stats = run(1, reqs[:1], urgent=urgent)
+    assert stats["preempted"] == 1 and got[0].preemptions == 1
+    assert got[0].tolist() == want[0].tolist()

@@ -121,14 +121,15 @@ def test_lifecycle_cancel_reject_and_unported_fields(smol):
     # ported since (ROADMAP A7): ABFT and the per-block KV checksums
     assert te.KernelConfig(abft="checksum").abft == "checksum"
     assert te.DurabilityConfig(kv_checksum=True).kv_checksum
-    for make in (
-        lambda: te.SchedulerConfig(prefill_chunk=8),
-        lambda: te.DurabilityConfig(snapshot_dir="x"),
-        lambda: eng.submit(te.Request(np.arange(3), priority=1)),
-        lambda: eng.submit(te.Request(np.arange(3), deadline_steps=4)),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make()
+    # ported since (ROADMAP A5a-A5c): the lane, priorities and deadlines
+    assert te.SchedulerConfig(prefill_chunk=8).prefill_chunk == 8
+    for req in (te.Request(np.arange(3), priority=1), te.Request(np.arange(3), deadline_steps=4)):
+        rid = eng.submit(req)  # max_waiting=1: one queued request at a time
+        assert eng.status(rid) == te.RequestStatus.WAITING
+        eng.cancel(rid)
+    # crash recovery is still A8
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        te.DurabilityConfig(snapshot_dir="x")
 
 
 def test_nan_guard_quarantines_only_the_poisoned_row(smol, monkeypatch):
