@@ -10,6 +10,7 @@
     python3 chip_smoke.py --recur     # WKV-6 and the scan alone (phases 6 (a, b), 7 (a, b))
     python3 chip_smoke.py --recur --baseline OLD/   # ... beside OLD/{linear_scan,wkv6}.cu
     python3 chip_smoke.py --sched     # the scheduler at full width (phase 10)
+    python3 chip_smoke.py --recover   # crash recovery at full width (phase 11)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -43,7 +44,8 @@ result.  Phases, any failure of which exits non-zero:
    in both modes (``max_len`` 256, 3 slots) must detect and retry every
    compute fault once, quarantine exactly the owner of every KV flip, and
    leave survivors bitwise equal to an unfaulted oracle; (d) a weight flip
-   must raise ``SDCUnlocalizedError`` before anything is emitted;
+   must raise ``SDCUnlocalizedError`` before anything is emitted ((c) and
+   (d) at 8 of the 32 layers, to leave the script's time to phase 11);
 5. the paper's CONV nest: every CONV layer of AlexNet, VGG-16 and
    GoogLeNet (``core/networks.py``) at their published shapes and the
    paper's batch of 16, random bf16 inputs from a seeded generator, through
@@ -79,7 +81,9 @@ result.  Phases, any failure of which exits non-zero:
    the kernel launched exactly 24 times per prefill call and per decode
    step; (d) on layer 0's activations of one prefill and one decode step,
    ``ops.wkv6`` against the plain version; (e) one profiled decode step's
-   card busy share and the kernel's share of it;
+   card busy share and the kernel's share of it; (f) phase 11's crash and
+   restore of the workload at 6 of the 24 layers, bitwise the
+   uninterrupted ``"pallas"`` run at that depth;
 7. recurrentgemma-2b at full width (26 layers: 8 groups of two RG-LRU
    layers and one attention layer with a 2048-token window, then 2 RG-LRU
    layers; d_model and rnn_width 2560, 10 query heads on 1 KV head of 256,
@@ -104,7 +108,9 @@ result.  Phases, any failure of which exits non-zero:
    step, ``ops.linear_scan`` against the plain version, bitwise; (e) one
    profiled decode step's card busy share and the two kernels' shares of
    it; (f) one full-width decode step through the kernels against the plain
-   path, within 5% of the logit scale;
+   path, within 5% of the logit scale; (g) phase 11's crash and restore of
+   the workload at 8 of the 26 layers (two groups and the two-layer tail),
+   bitwise the uninterrupted ``"pallas"`` run at that depth;
 8. flash attention, and the kernels widened to every dtype and head size
    their Pallas kernels take: (a) the main path, ``ops.flash_attention`` at
    four full-width bf16 shapes -- smollm-360m's prefill (8 x 1024 tokens, 15
@@ -151,7 +157,28 @@ result.  Phases, any failure of which exits non-zero:
    phase 2; (c) four phase-3 requests with ``deadline_steps`` 20 end FAILED,
    each with a prefix of its oracle tokens; (d) ``StaticEngine`` on eight
    128-token prompts: its greedy tokens equal ``Engine``'s, tokens/s of
-   both.
+   both;
+11. crash recovery at phase 3's widths (run after phase 10; the phase-3
+   workload and weights, ``matmul="pallas"``, snapshots every 16 steps,
+   2 kept, into a temporary directory on local disk, removed at the end),
+   each run's kernel launches counted over it and every request's tokens
+   held bitwise to phase 3's uninterrupted ones: (a) paged, the engine
+   killed after step 52 (two results popped, eight rows active, six
+   requests waiting; the first result finishes at step 47), restored and
+   drained: no popped result resurrected, no block leaked; (b) the same,
+   contiguous; (c) (a) with the newest snapshot corrupted: restore
+   quarantines it and recovers from the older one and its journal; (d) (a)
+   killed again 8 steps into the replay and restored again, from the first
+   restore's generation; (e) ABFT: paged, ``abft="checksum"``, snapshots
+   every 2 steps, 3 requests of 16 new tokens: a weight flip raises
+   ``SDCUnlocalizedError`` before anything is emitted, and the restore
+   with the pristine params finishes every request bitwise the ABFT-off
+   run; (f) what durability costs, in 5 rounds of turns (no manager,
+   ``journal_fsync_every`` 1, 8): step p50/p95 and tokens/s, the journal
+   commits' ms a step, per snapshot the host-blocking stage ms, the writer
+   thread's ms and the bytes; with (a)-(d)'s restore ms (read and verify,
+   host to device), replayed tokens and the replay steps' share of the
+   drain.  Phases 6 and 7 each crash and restore their served workload too.
 
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
@@ -160,7 +187,8 @@ no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way,
 ``--flash`` phase 1 and phase 8 (a, b), ``--gemm`` phase 1 and the GEMM
 checks of phase 2, ``--sched`` phase 1, the phase-3 oracle runs phase 10
 needs (contiguous ``"xla"`` and ``"pallas"``, paged ``"pallas"``) and phase
-10, whose JSON it prints last.  ``--gemm --baseline FILE`` also builds FILE (another
+10, whose JSON it prints last; ``--recover`` phase 1, the two phase-3
+``"pallas"`` runs phase 11 needs as its oracle, and phase 11.  ``--gemm --baseline FILE`` also builds FILE (another
 version of ``csrc/matmul.cu`` with the same C entry points, say the
 parent commit's) and times it beside this one on the same inputs, in turns
 (baseline, this, this, baseline), with the C entry point's host
@@ -177,9 +205,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -234,10 +264,10 @@ from repro_torch.kernels.linear_scan import linear_scan as ls  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as lsops  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
 from repro_torch.kernels.matmul import ops as mmops  # noqa: E402
-from repro_torch.serve import chaos, kvcache  # noqa: E402
+from repro_torch.serve import chaos, kvcache, recovery  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
-    Engine, KernelConfig, KVConfig, ReplayDivergedError, Request, SchedulerConfig,
-    SDCUnlocalizedError, ServeConfig, StaticEngine,
+    TERMINAL_STATUSES, DurabilityConfig, Engine, KernelConfig, KVConfig, ReplayDivergedError,
+    Request, RequestStatus, SchedulerConfig, SDCUnlocalizedError, ServeConfig, StaticEngine,
 )
 
 DEV = torch.device("cuda")
@@ -974,6 +1004,7 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
 
 
 SDC_MAX_LEN, SDC_SLOTS = 256, 3
+SDC_LAYERS = 8  # (c), (d): 8 of smollm-360m's 32 layers (see CRASH_LAYERS)
 SDC_MIXES = [(1, 1), (2, 1), (1, 2), (0, 1), (2, 0), (1, 1)]  # tests/test_sdc.py:175
 
 
@@ -1026,10 +1057,13 @@ def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) 
           f"100 repeats bitwise equal", flush=True)
     del eng
 
-    print(f"-- (c) seeded SDC episodes (max_len {SDC_MAX_LEN}, {SDC_SLOTS} slots, "
-          f"{len(SDC_MIXES)} episodes: the test matrix's fault mixes once, modes "
-          f"alternating; cut from the tests' SDC_EPISODES-driven count)", flush=True)
-    setups = {m: sdc_engines(cfg, params, m) for m in ("checksum", "paranoid")}
+    print(f"-- (c) seeded SDC episodes ({SDC_LAYERS} of the {cfg.n_layers} layers, max_len "
+          f"{SDC_MAX_LEN}, {SDC_SLOTS} slots, {len(SDC_MIXES)} episodes: the test matrix's "
+          f"fault mixes once, modes alternating; cut from the tests' SDC_EPISODES-driven "
+          f"count)", flush=True)
+    ecfg = dataclasses.replace(cfg, n_layers=SDC_LAYERS)
+    eparams = build(ecfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    setups = {m: sdc_engines(ecfg, eparams, m) for m in ("checksum", "paranoid")}
     reports = []
     for ep, (n_compute, n_kv) in enumerate(SDC_MIXES):
         mode = ("checksum", "paranoid")[ep % 2]
@@ -1385,6 +1419,358 @@ def sched_phase(cfg, params, reqs: list, oracle: dict, mono: dict, totals: dict,
                          launches=launches, engine_tok_per_s=res["tok_per_s"])
     print(f"StaticEngine: tokens == Engine's; {n_tok / wall:.1f} tok/s against Engine's "
           f"{res['tok_per_s']:.1f} ({card}); launches {launches}", flush=True)
+    return out
+
+
+# ------------------------------------------------------- crash-recovery phase --
+
+SNAP_EVERY, SNAP_KEEP = 16, 2     # (a)-(d): snapshots every 16 steps, 2 kept
+# the kill: the first result of the phase-3 workload finishes at step 47
+# (budget 48), so at step 52 two results are popped, eight rows active and
+# six requests waiting
+CRASH_AT = 52
+CHAIN_STEPS = 8                   # (d): the second kill, 8 steps into the replay
+COST_ROUNDS = 5                   # (f): rounds of (no manager, fsync 1, fsync 8)
+
+
+def recover_scfg(layout: str, directory: str | None, *, every: int = SNAP_EVERY,
+                 fsync_every: int = 1, abft_mode: str = "off", max_len: int = MAX_LEN,
+                 decode_block: int | None = BS) -> ServeConfig:
+    """Phase 3's engine config (8 slots, ``matmul="pallas"``), durable when
+    ``directory`` is set."""
+    kv = (KVConfig(layout="paged", block_size=BS) if layout == "paged"
+          else KVConfig(decode_block=decode_block))
+    return ServeConfig(
+        max_len=max_len, scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16), kv=kv,
+        kernel=KernelConfig(matmul="pallas", attention="flash", abft=abft_mode),
+        durability=DurabilityConfig(snapshot_dir=directory, snapshot_every=every,
+                                    snapshot_keep=SNAP_KEEP, journal_fsync_every=fsync_every),
+    )
+
+
+def kill(eng: Engine) -> None:
+    """A simulated SIGKILL: the snapshot in flight publishes (its writer
+    thread shares the process), the journal's fd is dropped unflushed."""
+    eng.recovery.wait()
+    eng.recovery.journal._f.close()
+
+
+def pop_terminal(eng: Engine, popped: dict) -> None:
+    for rid in sorted(eng._reqs):
+        if eng.status(rid) in TERMINAL_STATUSES:
+            popped[rid] = eng.pop_result(rid).tolist()
+
+
+def timed_restore(cfg, params, scfg, tag: str) -> tuple[Engine, object, dict]:
+    """``restore_engine`` with its host ms: in all, reading and verifying
+    the snapshot (``_load_snapshot``), and loading it into the engine
+    (``_apply_snapshot``: the host-to-device copies of the caches)."""
+    timer = HostTimer({"load_verify": (recovery, "_load_snapshot"),
+                       "host_to_device": (recovery, "_apply_snapshot")})
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, report = recovery.restore_engine(cfg, params, scfg, device=DEV)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    except ValueError as e:
+        fail(f"{tag}: restore failed: {e}")
+    finally:
+        timer.restore()
+    return eng, report, dict(restore_ms=total, load_verify_ms=timer.ms["load_verify"],
+                             host_to_device_ms=timer.ms["host_to_device"])
+
+
+def crash_run(cfg, params, reqs: list, oracle: list, tag: str, *, layout: str = "paged",
+              corrupt: bool = False, chain: bool = False, mid_flight: bool = True,
+              need: tuple[str, ...] | None = None, max_len: int = MAX_LEN,
+              decode_block: int | None = BS) -> dict:
+    """Serve ``reqs`` durably, kill the engine after step ``CRASH_AT``
+    (popping every terminal result on the way), optionally corrupt the
+    newest snapshot, restore, optionally kill and restore again
+    ``CHAIN_STEPS`` steps later, drain, and hold every request's tokens to
+    ``oracle`` (the uninterrupted run's, in ``reqs`` order) bitwise.  The
+    kernel launch counts are read over the whole run; each kernel in
+    ``need`` (default: the layout's decode attention and the GEMM) must
+    have launched."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        scfg = recover_scfg(layout, directory, max_len=max_len, decode_block=decode_block)
+        for w in WRAPPERS.values():
+            w.launches = 0
+        eng = Engine(cfg, params, scfg, device=DEV)
+        for r in reqs:
+            eng.submit(r)
+        popped: dict = {}
+        for _ in range(CRASH_AT):
+            if not eng.step():
+                fail(f"{tag}: the workload drained before the kill")
+            pop_terminal(eng, popped)
+        at_kill = dict(step=eng._step_no, popped=len(popped), active=len(eng._slots),
+                       waiting=len(eng._waiting))
+        if not eng._slots or (mid_flight and not (popped and eng._waiting)):
+            fail(f"{tag}: at the kill want active rows"
+                 + (", popped results and waiting requests" if mid_flight else "")
+                 + f": {at_kill}")
+        kill(eng)
+        del eng
+        keys = recovery._snapshot_keys(directory)
+        if corrupt and not chaos.corrupt_newest_snapshot(directory):
+            fail(f"{tag}: no snapshot to corrupt")
+        eng, report, times = timed_restore(cfg, params, scfg, tag)
+        reports = [dataclasses.asdict(report)]
+        if corrupt and not (report.quarantined and tuple(report.snapshot_key) == keys[-2]):
+            fail(f"{tag}: the corrupted snapshot {keys[-1]} was not quarantined for "
+                 f"{keys[-2]}: {report}")
+        if report.source != "snapshot":
+            fail(f"{tag}: restored from {report.source}, not a snapshot")
+        for rid in popped:
+            if eng.status(rid) != RequestStatus.UNKNOWN:
+                fail(f"{tag}: request {rid} was popped before the kill and came back")
+        if chain:
+            for _ in range(CHAIN_STEPS):
+                eng.step()
+                pop_terminal(eng, popped)
+            kill(eng)
+            del eng
+            eng, report, times2 = timed_restore(cfg, params, scfg, tag)
+            reports.append(dataclasses.asdict(report))
+            if report.snapshot_key[0] < 1:
+                fail(f"{tag}: the second restore did not come from the first restore's "
+                     f"generation: {report}")
+            times = {k: [times[k], times2[k]] for k in times}
+        lag = recovery.replay_lag(eng)
+        replay_steps, replay_s, steps = 0, 0.0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            while True:
+                before = (eng.stats["recovered"], eng.stats["replayed"])
+                ts = time.perf_counter()
+                alive = eng.step()
+                dt = time.perf_counter() - ts
+                steps += 1
+                if (eng.stats["recovered"], eng.stats["replayed"]) != before:
+                    replay_steps += 1
+                    replay_s += dt
+                pop_terminal(eng, popped)
+                if not alive:
+                    break
+        except ReplayDivergedError as e:
+            fail(f"{tag}: {e}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        if eng.pool is not None:
+            eng.pool.assert_invariants(eng.live_block_refs())
+            if eng.pool.free_blocks != eng.pool.num_blocks - 1:
+                fail(f"{tag}: blocks leaked across the crash")
+        eng.close()
+        got = [popped.get(r.request_id) for r in reqs]
+        bad = [r.request_id for r, g, w in zip(reqs, got, oracle) if g != w]
+        if bad:
+            fail(f"{tag}: requests {bad} differ from the uninterrupted run")
+        if need is None:
+            need = ("flash_decode_paged" if layout == "paged" else "flash_decode", "gemm_bf16")
+        for n in need:
+            if launches[n] <= 0:
+                fail(f"{tag}: kernel {n} was never launched")
+        res = dict(tag=tag, layout=layout, at_kill=at_kill, reports=reports, **times,
+                   replay_lag=lag, replayed=eng.stats["replayed"], drain_steps=steps,
+                   drain_s=wall, replay_steps=replay_steps, replay_s=replay_s,
+                   replay_share=replay_s / wall, launches=launches)
+        print(f"{tag}: killed at {at_kill}; restored from {reports[-1]['snapshot_key']} "
+              f"({len(reports)} restore(s), quarantined {report.quarantined}), "
+              f"{report.tokens_replayed} journaled tokens, lag {lag}; restore "
+              f"{times['restore_ms']} ms (read+verify {times['load_verify_ms']}, "
+              f"host-to-device {times['host_to_device_ms']}); drain {steps} steps in "
+              f"{wall:.3f} s, replay {replay_steps} steps {replay_s:.3f} s "
+              f"({100 * res['replay_share']:.1f}%); every request == the uninterrupted run; "
+              f"launches {launches}", flush=True)
+        return res
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+# the recurrent models' kill and restore (phases 6 (f), 7 (g)) run at a cut
+# depth, and phase 4's SDC episodes at SDC_LAYERS: at full depth phase 11
+# made the whole script ~190 s longer
+CRASH_LAYERS = {"rwkv6-1.6b": 6, "recurrentgemma-2b": 8}
+
+
+def recurrent_crash(cfg, make_params, reqs: list, tag: str, need: tuple[str, ...],
+                    totals: dict, **common) -> dict:
+    """Phase 11's kill and restore of a recurrent model's served workload at
+    ``CRASH_LAYERS`` depth (weights from ``make_params``), held to the
+    uninterrupted ``"pallas"`` run at that depth."""
+    cut = dataclasses.replace(cfg, n_layers=CRASH_LAYERS[cfg.name])
+    params = make_params(cut)
+    oracle, toks, _ = serve_once(cut, params, "contiguous", "pallas", reqs, **common)
+    crash = crash_run(cut, params, reqs, toks, tag, layout="contiguous", mid_flight=False,
+                      need=need, **common)
+    for run in (oracle, crash):
+        for n, c in run["launches"].items():
+            totals[n] += c
+    return dict(crash, layers=cut.n_layers, oracle=oracle)
+
+
+def abft_restore(cfg, params) -> dict:
+    """(e): a weight flip raises before anything is emitted, and the
+    restore with the pristine params finishes every request bitwise the
+    ABFT-off oracle, through the checksum GEMM."""
+    rng = np.random.default_rng(41)
+    reqs = [Request(rng.integers(0, cfg.vocab, 10).astype(np.int32), max_new=16, request_id=i)
+            for i in range(3)]
+    oracle = [o.tolist() for o in Engine(cfg, params, recover_scfg("paged", None),
+                                        device=DEV).run(reqs)]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_snap_")
+    try:
+        scfg = recover_scfg("paged", directory, every=2, abft_mode="checksum")
+        eng = Engine(cfg, params, scfg, device=DEV)
+        for r in reqs:
+            eng.submit(r)
+        emitted = []
+        for _ in range(5):
+            eng.step(on_token=lambda *a: emitted.append(a))
+        n_before = len(emitted)
+        eng.params, leaf = chaos.flip_weight_bit(eng.params, rng)
+        try:
+            eng.step(on_token=lambda *a: emitted.append(a))
+            fail("abft restore: a weight flip did not raise SDCUnlocalizedError")
+        except SDCUnlocalizedError:
+            pass
+        if len(emitted) != n_before:
+            fail("abft restore: tokens were emitted on the step that found the flip")
+        kill(eng)
+        del eng
+        for w in WRAPPERS.values():
+            w.launches = 0
+        eng, report, times = timed_restore(cfg, params, scfg, "abft restore")
+        try:
+            while eng.step():
+                pass
+        except (ReplayDivergedError, SDCUnlocalizedError) as e:
+            fail(f"abft restore: {e}")
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+        if eng.pool.free_blocks != eng.pool.num_blocks - 1:
+            fail("abft restore: blocks leaked")
+        got = [eng.pop_result(r.request_id) for r in reqs]
+        eng.close()
+        if [g.status for g in got] != [RequestStatus.FINISHED] * 3:
+            fail(f"abft restore: {[(g.status, g.reason) for g in got]}")
+        if [g.tolist() for g in got] != oracle:
+            fail("abft restore: tokens differ from the ABFT-off oracle")
+        if launches["gemm_bf16_abft"] <= 0 or eng.stats["sdc_detected"]:
+            fail(f"abft restore: checksum GEMM launches {launches['gemm_bf16_abft']}, "
+                 f"detections {eng.stats['sdc_detected']}")
+        print(f"abft restore: weight flip in leaf {leaf} raised before emission; restored "
+              f"from {report.snapshot_key} with the pristine params, every request == the "
+              f"ABFT-off oracle; launches {launches}", flush=True)
+        return dict(leaf=leaf, report=dataclasses.asdict(report), **times, launches=launches)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def cost_run(cfg, params, reqs: list, oracle: list, fsync_every: int | None) -> dict:
+    """(f): the (a) workload served to its end without a manager
+    (``fsync_every`` None) or with one at that journal fsync cadence: step
+    p50/p95 and tokens/s on the host clock; the journal commits' ms a step
+    (flush and fsync); per snapshot the host-blocking stage ms, the writer
+    thread's ms (npz, sha256, fsyncs, publish, GC) and the npz's bytes."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_snap_") if fsync_every else None
+    timer = None
+    if fsync_every:
+        timer = HostTimer({"stage": (recovery, "_stage"),
+                           "write": (recovery, "_write_snapshot"),
+                           "commit": (recovery.Journal, "commit")})
+    try:
+        eng = Engine(cfg, params, recover_scfg("paged", directory, fsync_every=fsync_every or 1),
+                     device=DEV)
+        step_ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        while True:
+            ts = time.perf_counter()
+            alive = eng.step()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            if not alive:
+                break
+        outs = [eng.pop_result(r.request_id).tolist() for r in reqs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nbytes = None
+        if fsync_every:
+            eng.close()
+            keys = recovery._snapshot_keys(directory)
+            nbytes = os.path.getsize(os.path.join(directory, recovery._snap_name(*keys[-1]),
+                                                  "state.npz"))
+    finally:
+        if timer is not None:
+            timer.restore()
+        if directory:
+            shutil.rmtree(directory, ignore_errors=True)
+    if outs != oracle:
+        fail(f"durability cost (fsync_every={fsync_every}): tokens differ from phase 3's")
+    step_ms.sort()
+    res = dict(fsync_every=fsync_every, steps=len(step_ms),
+               step_p50_ms=step_ms[len(step_ms) // 2],
+               step_p95_ms=step_ms[min(len(step_ms) - 1, int(len(step_ms) * 0.95))],
+               tok_per_s=sum(len(o) for o in outs) / wall)
+    if timer is not None:
+        n = max(1, timer.calls["stage"])
+        res.update(snapshots=timer.calls["stage"], stage_ms=timer.ms["stage"] / n,
+                   write_ms=timer.ms["write"] / max(1, timer.calls["write"]),
+                   commit_ms_per_step=timer.ms["commit"] / len(step_ms), bytes=nbytes)
+    return res
+
+
+def recover_phase(cfg, params, reqs: list, oracle: dict, totals: dict, card: str) -> dict:
+    """Phase 11, (a)-(f) of the module docstring.  ``oracle`` holds phase
+    3's tokens by (layout, matmul)."""
+    out: dict = {}
+
+    def run(tag, **kw):
+        layout = kw.get("layout", "paged")
+        res = crash_run(cfg, params, reqs, oracle[(layout, "pallas")], tag, **kw)
+        for n, c in res["launches"].items():
+            totals[n] += c
+        return res
+
+    print(f"-- (a) kill at step {CRASH_AT}, restore and drain, paged ({card})", flush=True)
+    out["paged"] = run("crash/paged")
+    print("-- (b) the same, contiguous", flush=True)
+    out["contiguous"] = run("crash/contiguous", layout="contiguous")
+    print("-- (c) the newest snapshot corrupted", flush=True)
+    out["corrupt"] = run("crash/paged/corrupt", corrupt=True)
+    print(f"-- (d) a second kill {CHAIN_STEPS} steps into the replay", flush=True)
+    out["chained"] = run("crash/paged/chained", chain=True)
+    print("-- (e) ABFT weight flip, then restore with the pristine params", flush=True)
+    out["abft"] = abft_restore(cfg, params)
+    for n, c in out["abft"]["launches"].items():
+        totals[n] += c
+    print(f"-- (f) what durability costs: {COST_ROUNDS} rounds of no manager, fsync every "
+          f"step, fsync every 8 steps, in turns ({card})", flush=True)
+    modes = (None, 1, 8)
+    rows = []
+    for rnd in range(COST_ROUNDS):
+        for mode in (modes if rnd % 2 == 0 else modes[::-1]):
+            rows.append(cost_run(cfg, params, reqs, oracle[("paged", "pallas")], mode))
+            r = rows[-1]
+            print(f"round {rnd} fsync_every={mode}: step p50 {r['step_p50_ms']:.2f} ms p95 "
+                  f"{r['step_p95_ms']:.2f} ms, {r['tok_per_s']:.1f} tok/s"
+                  + (f"; commit {r['commit_ms_per_step']:.3f} ms/step, {r['snapshots']} "
+                     f"snapshots: stage {r['stage_ms']:.1f} ms, write {r['write_ms']:.1f} ms, "
+                     f"{r['bytes']} B" if mode else ""), flush=True)
+    summary = {}
+    for mode in modes:
+        mine = [r for r in rows if r["fsync_every"] == mode]
+        summary[str(mode)] = {k: statistics.median(r[k] for r in mine)
+                              for k in mine[0] if k not in ("fsync_every",)
+                              and mine[0][k] is not None}
+    print("durability cost, medians over the rounds: " + json.dumps(summary), flush=True)
+    out["cost"] = dict(rows=rows, medians=summary)
     return out
 
 
@@ -1766,7 +2152,10 @@ def rwkv_phase(totals: dict, results: dict) -> dict:
     layer = check_rwkv_layer(cfg, params)
     print("-- (e) where a decode step's time goes", flush=True)
     prof = profile_decode(cfg, params, reqs, focus=("wkv6",))
-    return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof)
+    print(f"-- (f) kill at step {CRASH_AT}, restore and drain (phase 11), at "
+          f"{CRASH_LAYERS[cfg.name]} of the {cfg.n_layers} layers", flush=True)
+    crash = recurrent_crash(cfg, rwkv_params, reqs, "crash/rwkv", ("wkv6", "gemm_bf16"), totals)
+    return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof, crash=crash)
 
 
 # ----------------------------------------------------- recurrentgemma phase --
@@ -1964,8 +2353,12 @@ def rg_phase(totals: dict, results: dict) -> dict:
     prof = profile_decode(cfg, params, reqs, focus=("linear_scan", DECODE_KERNEL), **common)
     print("-- (f) one full-width decode step, kernels against the plain path", flush=True)
     step_err = check_decode_step(cfg, params)
+    print(f"-- (g) kill at step {CRASH_AT}, restore and drain (phase 11), at "
+          f"{CRASH_LAYERS[cfg.name]} of the {cfg.n_layers} layers", flush=True)
+    crash = recurrent_crash(cfg, rg_params, reqs, "crash/recurrentgemma",
+                            ("linear_scan", "flash_decode", "gemm_bf16"), totals, **common)
     return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof,
-                decode_step_max_abs_err=step_err)
+                decode_step_max_abs_err=step_err, crash=crash)
 
 
 # ---------------------------------------------------- flash-attention phase --
@@ -2384,7 +2777,9 @@ def main() -> None:
         print(json.dumps({"gemm": {k: results[k] for k in ("gemm_bf16", "gemm_bf16_abft")}}))
         return
     sched_only = sys.argv[1:] == ["--sched"]
-    if not sched_only:
+    recover_only = sys.argv[1:] == ["--recover"]
+    only = sched_only or recover_only
+    if not only:
         print("== kernels against their plain versions", flush=True)
         check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
                      [0, 1, 17, 100, 255, 300, 777, 1024])
@@ -2397,7 +2792,7 @@ def main() -> None:
         print(json.dumps({"decode": results}))
         return
     cfg = get("smollm-360m")
-    if not sched_only:
+    if not only:
         check_gemm(results, prefill_m=prefill_m)
         check_gemm_abft(results, prefill_m=prefill_m)
 
@@ -2411,6 +2806,8 @@ def main() -> None:
         for layout in ("contiguous", "paged"):
             if sched_only and (layout, matmul) == ("paged", "xla"):
                 continue  # --sched needs the oracles of phase 10 alone
+            if recover_only and matmul == "xla":
+                continue  # --recover needs the "pallas" oracles alone
             res, toks, _ = serve_once(cfg, params, layout, matmul, reqs)
             runs.append(res)
             tokens[(layout, matmul)] = toks
@@ -2434,6 +2831,13 @@ def main() -> None:
         print(card)
         print(json.dumps({"sched": sched, "launches": totals}))
         return
+    if recover_only:
+        print("== crash recovery at full width", flush=True)
+        recover = recover_phase(cfg, params, reqs, tokens, totals, card)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"recover": recover, "launches": totals}))
+        return
 
     print("== where a decode step's time goes", flush=True)
     prof = profile_decode(cfg, params, reqs, focus=(GEMM_KERNEL,))
@@ -2443,6 +2847,9 @@ def main() -> None:
 
     print("== scheduling at full width", flush=True)
     sched = sched_phase(cfg, params, reqs, tokens, mono, totals, card)
+
+    print("== crash recovery at full width", flush=True)
+    recover = recover_phase(cfg, params, reqs, tokens, totals, card)
 
     print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
     convs = conv_phase(totals, results)
@@ -2467,7 +2874,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
-             serve=runs, decode_profile=prof, sdc=sdc, sched=sched, conv=convs, rwkv=rwkv,
+             serve=runs, decode_profile=prof, sdc=sdc, sched=sched, recover=recover, conv=convs,
+             rwkv=rwkv,
              recurrentgemma=rgemma,
              seconds=time.perf_counter() - t_start),
         indent=1))

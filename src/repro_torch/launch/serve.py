@@ -1,7 +1,6 @@
 """Serving launcher on the port's continuous-batching engine; port of
-``repro/launch/serve.py`` without the flags of unported features
-(``--snapshot-dir``, ``--resume``: ROADMAP A8; ``--autotune``,
-``--concurrency``: A6c).
+``repro/launch/serve.py`` without the flags of the unported autotuner
+(``--autotune``, ``--concurrency``: ROADMAP A6c).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
@@ -10,7 +9,11 @@
 Generates a mixed-length synthetic workload with random weights, streams
 tokens through the engine, and reports throughput plus per-token latency.
 ``--static`` runs the padded static-batch baseline instead (same workload,
-same slot count) for an A/B on the spot.  Runs on the card (``--device
+same slot count) for an A/B on the spot.  ``--snapshot-dir D`` makes the
+run crash-consistent (snapshots plus a write-ahead journal under D); after a
+crash, the same command with ``--resume`` restores the engine from D,
+prints the recovery report and finishes the requests in flight (the
+weights come from the same seeded generator, so they are the same).  Runs on the card (``--device
 cuda``, the default; it fails when no card is visible) or, asked
 explicitly, on the CPU with the plain versions.
 """
@@ -25,7 +28,9 @@ import torch
 
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.registry import get
+from repro_torch.serve import recovery
 from repro_torch.serve.engine import (
+    DurabilityConfig,
     Engine,
     KernelConfig,
     KVConfig,
@@ -115,9 +120,26 @@ def main(argv=None):
     ap.add_argument("--deadline-steps", type=int, default=None,
                     help="per-request deadline in engine steps; expired "
                          "requests end FAILED with their partial output")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="arm crash consistency: atomic engine snapshots "
+                         "plus a write-ahead journal under this directory "
+                         "(created if missing); relaunch with --resume to "
+                         "recover after a crash")
+    ap.add_argument("--snapshot-every", type=int, default=32,
+                    help="steps between snapshots (journal records land "
+                         "every step regardless)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore from --snapshot-dir instead of submitting "
+                         "a fresh workload: replay the journal, print the "
+                         "recovery report, and finish the in-flight requests")
     ap.add_argument("--static", action="store_true",
                     help="run the padded static-batch baseline instead")
     args = ap.parse_args(argv)
+    if args.resume and not args.snapshot_dir:
+        ap.error("--resume requires --snapshot-dir")
+    if args.static and (args.snapshot_dir or args.resume):
+        ap.error("--snapshot-dir/--resume need the continuous engine "
+                 "(drop --static)")
     if args.abft != "off" and args.kv_layout != "paged":
         ap.error("--abft localizes corruption through the paged pool's "
                  "per-block fingerprints (add --kv-layout paged)")
@@ -148,15 +170,34 @@ def main(argv=None):
             matmul=args.matmul, attention=args.attention,
             abft=args.abft, scrub_every=args.scrub_every,
         ),
+        durability=DurabilityConfig(
+            snapshot_dir=args.snapshot_dir, snapshot_every=args.snapshot_every,
+        ),
     )
-    reqs = make_workload(
-        cfg, args.requests, args.new_tokens, args.seed, deadline=args.deadline_steps
-    )
-    mode = "static" if args.static else "continuous"
-    if args.static:
-        eng = StaticEngine(cfg, params, scfg, device=device)
+    mode = "static" if args.static else "resume" if args.resume else "continuous"
+    if args.resume:
+        eng, report = recovery.restore_engine(cfg, params, scfg, device=device)
+        print(
+            f"[resume] source={report.source} snapshot={report.snapshot_key} "
+            f"segments={report.segments} records={report.records} "
+            f"torn={report.torn_lines}"
+        )
+        print(
+            f"[resume] resubmitted={report.resubmitted} "
+            f"tokens_replayed={report.tokens_replayed} "
+            f"cancels={report.cancels} pops={report.pops} "
+            f"quarantined={report.quarantined or '[]'}"
+        )
+        rids = sorted(eng._reqs)
     else:
-        eng = Engine(cfg, params, scfg, device=device)
+        reqs = make_workload(
+            cfg, args.requests, args.new_tokens, args.seed, deadline=args.deadline_steps
+        )
+        rids = [r.request_id for r in reqs]
+        if args.static:
+            eng = StaticEngine(cfg, params, scfg, device=device)
+        else:
+            eng = Engine(cfg, params, scfg, device=device)
 
     stamps: dict[int, list[float]] = {}
     t0 = time.perf_counter()
@@ -167,12 +208,18 @@ def main(argv=None):
     if args.static:
         outs = eng.generate(reqs, on_token=on_token)
     else:
-        outs = eng.run(reqs, on_token=on_token)
+        with eng:
+            if not args.resume:
+                for r in reqs:
+                    eng.submit(r)
+            while eng.step(on_token):
+                pass
+            outs = [eng.pop_result(r) for r in rids]
     dt = time.perf_counter() - t0
     total_new = sum(len(o) for o in outs)
     p50, p95 = latency_summary(stamps)
     print(
-        f"[{mode}/{device.type}] served {len(reqs)} requests, {total_new} "
+        f"[{mode}/{device.type}] served {len(rids)} requests, {total_new} "
         f"tokens, {dt:.2f}s ({total_new / dt:.1f} tok/s, per-token "
         f"p50={p50 * 1e3:.1f}ms p95={p95 * 1e3:.1f}ms)"
     )

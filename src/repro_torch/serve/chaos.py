@@ -1,5 +1,5 @@
 """Seeded fault-injection episodes for the serve engine; port of
-``repro/serve/chaos.py`` without its crash episodes.
+``repro/serve/chaos.py``.
 
 A **lifecycle episode** (:func:`run_episode`) drives a seeded workload with
 priorities and deadlines through an :class:`~repro_torch.serve.engine.Engine`
@@ -34,25 +34,33 @@ one must be a prefix of it).  Sampling folds only ``(seed, request id,
 token index)``, so the unfaulted run is ground truth for any faulted
 interleaving.  Episodes are pure functions of ``(engine config, seed)``.
 
-Not ported yet: the crash episodes (``run_crash_episode``), which wait
-for recovery (ROADMAP A8).
+A **crash episode** (:func:`run_crash_episode`) drives a durable engine
+(``DurabilityConfig.snapshot_dir``) through the lifecycle fault schedule,
+client result pops included, until a seeded step, then simulates a process
+kill (the engine is abandoned with only what its journal synced, and
+sometimes the newest snapshot's bytes flipped, :func:`corrupt_newest_snapshot`),
+restores it (:func:`~repro_torch.serve.recovery.restore_engine`) and drives
+the rest: audited every step, leak-free at drain, every request bitwise its
+oracle, and no popped result resurrected.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import abft
-from repro_torch.serve import kvcache
+from repro_torch.serve import kvcache, recovery
 from repro_torch.serve.engine import (
     SDC_RETRY_BUDGET,
     TERMINAL_STATUSES,
     Engine,
     Request,
     RequestStatus,
+    ServeConfig,
 )
 
 # the test matrices draw episode seeds as <env seed> + SEED_STRIDE + episode,
@@ -183,6 +191,8 @@ class ChaosConfig:
     p_priority: float = 0.3       # per-request: non-zero priority (1..3)
     burst_hi: int = 4             # submissions per step upper bound
     max_steps: int = 1000         # drain bound (fail = livelock)
+    p_pop: float = 0.15           # per-step: the client pops a terminal result
+    crash_hi: int = 24            # crash step drawn from [1, crash_hi]
 
 
 @dataclasses.dataclass
@@ -330,6 +340,194 @@ def run_episode(
         steps=steps,
         statuses=statuses,
         stats={k: v - stats0.get(k, 0) for k, v in eng.stats.items()},
+    )
+
+
+# ---------------------------------------------------------- crash episodes --
+
+
+@dataclasses.dataclass
+class CrashEpisodeReport:
+    """One kill-and-restore episode: where it crashed, what recovery found,
+    and the outcomes after the restore."""
+
+    seed: int
+    crash_step: int               # simulated-kill step (0 = drained first)
+    steps: int                    # engine steps across both lives
+    source: str                   # restore source: snapshot | cold | fresh
+    statuses: dict[str, int]
+    stats: dict[str, int]         # the restored engine's counters
+    tokens_replayed: int
+    quarantined: int              # snapshots renamed *.corrupt by the restore
+    popped_pre_crash: int
+    corrupted: bool               # the episode flipped a byte of the newest snapshot
+
+
+def corrupt_newest_snapshot(directory: str) -> bool:
+    """Flip one byte inside the newest published snapshot's npz (disk rot,
+    a torn sector), so restore must quarantine it and fall back.  False
+    when no snapshot has been published yet."""
+    keys = recovery._snapshot_keys(directory)
+    if not keys:
+        return False
+    npz = os.path.join(directory, recovery._snap_name(*keys[-1]), "state.npz")
+    with open(npz, "r+b") as f:
+        f.seek(0, os.SEEK_END)
+        pos = min(128, f.tell() - 1)
+        f.seek(pos)
+        byte = f.read(1)
+        f.seek(pos)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return True
+
+
+def run_crash_episode(
+    cfg,
+    params,
+    scfg: ServeConfig,
+    oracle: dict[int, list[int]],
+    reqs: list[Request],
+    seed: int,
+    ccfg: ChaosConfig,
+    p_corrupt: float = 0.25,
+    device=None,
+) -> CrashEpisodeReport:
+    """One seeded kill-and-restore episode, the reference's draws in order.
+    Life 1 drives a fresh durable engine through the fault schedule
+    (cancels, preemptions, block-pressure spikes, client pops) up to a
+    seeded crash step, then simulates a kill: the snapshot in flight
+    publishes (its daemon thread shares the process), the journal's fd is
+    dropped, and with probability ``p_corrupt`` the newest snapshot's
+    bytes are flipped.  Life 2 restores from disk, audits every step while
+    the same schedule goes on, and ends as :func:`run_episode` does: no
+    leaked block, every request bitwise its oracle (or a prefix of it),
+    results popped before the crash not resurrected."""
+    assert scfg.durability.snapshot_dir, "crash episodes need a snapshot_dir"
+    cmd = episode_header(
+        "crash", seed, "RECOVERY_EPISODES", "tests/test_torch_chaos_crash.py", "CHAOS_SEED"
+    )
+    rng = np.random.default_rng(seed)
+    eng = Engine(cfg, params, scfg, device=device)
+    pending = list(rng.permutation(len(reqs)))
+    rids = [r.request_id for r in reqs]
+    spikes: list[tuple[list[int], int]] = []
+    popped: dict[int, object] = {}
+    steps = 0
+    crash_step = int(rng.integers(1, ccfg.crash_hi + 1))
+
+    def live(engine, statuses):
+        return [r for r in rids if engine.status(r) in statuses]
+
+    def drive(engine, stop_at):
+        nonlocal steps
+        while pending or engine._slots or engine._waiting or engine._lane is not None:
+            if stop_at is not None and steps >= stop_at:
+                return
+            for _ in range(int(rng.integers(0, ccfg.burst_hi + 1))):
+                if pending:
+                    engine.submit(reqs[pending.pop(0)])
+            if rng.random() < ccfg.p_cancel:
+                victims = live(engine, (
+                    RequestStatus.WAITING, RequestStatus.ACTIVE,
+                    RequestStatus.PREFILLING, RequestStatus.PREEMPTED,
+                ))
+                if victims:
+                    engine.cancel(victims[int(rng.integers(len(victims)))])
+            if rng.random() < ccfg.p_preempt:
+                actives = live(engine, (RequestStatus.ACTIVE, RequestStatus.PREFILLING))
+                if actives:
+                    engine.preempt(actives[int(rng.integers(len(actives)))])
+            if engine.pool is not None and rng.random() < ccfg.p_spike:
+                held = engine.pool.reserve(int(rng.integers(1, ccfg.spike_blocks + 1)))
+                if held:
+                    expiry = steps + int(rng.integers(1, ccfg.spike_steps + 1))
+                    spikes.append((held, expiry))
+            engine.step()
+            steps += 1
+            for held, expiry in [s for s in spikes if s[1] <= steps]:
+                engine.pool.unreserve(held)
+                spikes.remove((held, expiry))
+            if rng.random() < ccfg.p_pop:
+                done = [r for r in live(engine, TERMINAL_STATUSES) if r not in popped]
+                if done:
+                    rid = done[int(rng.integers(len(done)))]
+                    popped[rid] = engine.pop_result(rid)
+            audit(engine)
+            assert steps < ccfg.max_steps, (
+                f"crash episode seed={seed} failed to drain in {steps} steps "
+                f"(livelock); repro: {cmd}"
+            )
+
+    drive(eng, crash_step)
+    crashed_mid_flight = bool(pending or eng._slots or eng._waiting or eng._lane is not None)
+    # the simulated kill: nothing is closed or flushed beyond what the
+    # journal's per-step commits already wrote
+    eng.recovery.wait()
+    eng.recovery.journal._f.close()
+    corrupted = rng.random() < p_corrupt and corrupt_newest_snapshot(
+        scfg.durability.snapshot_dir
+    )
+    del eng
+    spikes.clear()  # the reserve holders died with the process
+
+    eng2, report = recovery.restore_engine(cfg, params, scfg, device=device)
+    audit(eng2)
+    if corrupted:
+        assert report.quarantined, (
+            f"crash episode seed={seed}: the corrupted newest snapshot was not "
+            f"quarantined (restore source={report.source}); repro: {cmd}"
+        )
+    for rid in popped:
+        assert eng2.status(rid) == RequestStatus.UNKNOWN, (
+            f"crash episode seed={seed}: rid {rid} was popped before the crash "
+            f"but recovery resurrected it; repro: {cmd}"
+        )
+    drive(eng2, None)
+    for held, _ in spikes:
+        eng2.pool.unreserve(held)
+    spikes.clear()
+    audit(eng2)
+    if eng2.pool is not None:
+        assert eng2.pool.free_blocks == eng2.pool.num_blocks - 1, (
+            f"crash episode seed={seed} leaked "
+            f"{eng2.pool.num_blocks - 1 - eng2.pool.free_blocks} blocks across "
+            f"the crash; repro: {cmd}"
+        )
+
+    statuses: dict[str, int] = {}
+    results = dict(popped)
+    for r in reqs:
+        if r.request_id not in results:
+            results[r.request_id] = eng2.pop_result(r.request_id)
+    for r in reqs:
+        res = results[r.request_id]
+        statuses[res.status.value] = statuses.get(res.status.value, 0) + 1
+        want = oracle[r.request_id]
+        got = res.tolist()
+        if res.status == RequestStatus.FINISHED:
+            assert got == want, (
+                f"crash episode seed={seed} rid {r.request_id} "
+                f"(preemptions={res.preemptions}, restore={report.source}): "
+                f"FINISHED output {got} != oracle {want}; repro: {cmd}"
+            )
+        else:
+            assert got == want[: len(got)], (
+                f"crash episode seed={seed} rid {r.request_id} ({res.status}, "
+                f"restore={report.source}): partial output {got} is not a prefix "
+                f"of oracle {want}; repro: {cmd}"
+            )
+    eng2.close()
+    return CrashEpisodeReport(
+        seed=seed,
+        crash_step=crash_step if crashed_mid_flight else 0,
+        steps=steps,
+        source=report.source,
+        statuses=statuses,
+        stats=dict(eng2.stats),
+        tokens_replayed=report.tokens_replayed,
+        quarantined=len(report.quarantined),
+        popped_pre_crash=len(popped),
+        corrupted=corrupted,
     )
 
 

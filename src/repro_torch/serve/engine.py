@@ -1,5 +1,5 @@
 """Continuous-batching serve engine; port of ``repro/serve/engine.py``
-without recovery and autotuning.
+without autotuning.
 
 The decode batch is a fixed ring of ``batch`` KV slots and requests flow
 through it continuously:
@@ -41,9 +41,11 @@ of the port's own, the per-block KV checksum audit (``kv_checksum``), the
 silent-data-corruption (SDC) defense (``KernelConfig.abft``: checksummed
 decode GEMMs, a sampled attention fingerprint, a periodic weight scrub,
 and detect -> retry -> quarantine, :meth:`Engine._sdc_recover`), and the
-static-batch baseline :class:`StaticEngine`.  Recovery (``snapshot_dir``)
-and autotuning are not ported (ROADMAP A8, A6c).  The reference's
-one-shot substrate fallback is not ported either: a kernel failure raises.
+static-batch baseline :class:`StaticEngine`, and crash recovery
+(``DurabilityConfig.snapshot_dir``: a write-ahead journal and periodic
+snapshots, :mod:`repro_torch.serve.recovery`).  Autotuning is not ported
+(ROADMAP A6c).  The reference's one-shot substrate fallback is not ported
+either: a kernel failure raises.
 
 Replay and the lane are bitwise only if a prefill row's bits do not
 depend on the admission's shape.  Admission therefore prefills with
@@ -153,10 +155,6 @@ class Request:
     @property
     def max_new_tokens(self) -> int:
         return self.max_new
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,15 +276,32 @@ class DurabilityConfig:
     # per-step NaN/Inf guard on decode logits: a non-finite row is
     # quarantined (FAILED, blocks released) instead of streaming garbage
     guard_nan: bool = True
-    snapshot_dir: str | None = None  # not ported (ROADMAP A8)
+    # a directory here arms the RecoveryManager (serve/recovery.py): a
+    # crc32'd write-ahead journal of submits, cancels, pops and token deltas
+    # (committed every step) plus a snapshot of the whole serving state every
+    # ``snapshot_every`` steps, staged at the step boundary and published
+    # by a background thread with one rename; restore_engine() rebuilds a
+    # crashed engine whose requests finish bitwise as if it never crashed
+    snapshot_dir: str | None = None
+    snapshot_every: int = 32
+    snapshot_keep: int = 3           # published snapshots kept by GC
+    # fsync the journal every N per-step commits (submit, cancel and pop
+    # always sync); 1 = every step
+    journal_fsync_every: int = 1
     # paged only: per-physical-block |K|+|V| sums recomputed every step; a
     # block that changed without a legal write FAILs every request holding
     # it (blocks released).  O(pool) device work per step, off by default.
     kv_checksum: bool = False
 
     def __post_init__(self):
-        if self.snapshot_dir is not None:
-            raise _not_ported("crash recovery (snapshot_dir)", "A8")
+        if self.snapshot_every < 1:
+            raise ValueError(f"snapshot_every must be >= 1 step: {self.snapshot_every}")
+        if self.snapshot_keep < 1:
+            raise ValueError(f"snapshot_keep must be >= 1 snapshot: {self.snapshot_keep}")
+        if self.journal_fsync_every < 1:
+            raise ValueError(
+                f"journal_fsync_every must be >= 1 commit: {self.journal_fsync_every}"
+            )
 
 
 @dataclasses.dataclass
@@ -549,6 +564,7 @@ class Engine:
             "quarantined": 0,
             "sdc_detected": 0,  # abft: steps whose checks flagged
             "sdc_retried": 0,   # abft: re-executions on the plain attention
+            "snapshots": 0,     # recovery snapshots staged
         }
 
         # ---- abft state (kernels/abft.py) ----
@@ -569,7 +585,7 @@ class Engine:
         self._kv_sums: np.ndarray | None = None
         self._touched: set[int] = set()
         if scfg.durability.kv_checksum or (self._abft and self._paged):
-            self._kv_sums = self._pool_sums()
+            self._refresh_kv_sums()
 
         # ---- the chunked-prefill lane (prefill_chunk > 0) ----
         # Prompts stream through a batch-1 contiguous scratch cache in fixed
@@ -585,6 +601,17 @@ class Engine:
                 f"the cache cursor and the final chunk is right-padded); {cfg.name} "
                 f"has ring/recurrent/hybrid caches -- use monolithic admission "
                 f"(prefill_chunk=0)"
+            )
+
+        # crash consistency: journal + periodic snapshots (serve/recovery.py)
+        self.recovery = None
+        dur = scfg.durability
+        if dur.snapshot_dir:
+            from repro_torch.serve.recovery import RecoveryManager
+
+            RecoveryManager.attach(
+                self, dur.snapshot_dir, every=dur.snapshot_every,
+                keep=dur.snapshot_keep, fsync_every=dur.journal_fsync_every,
             )
 
     # ----------------------------------------------------------- sampling --
@@ -647,6 +674,10 @@ class Engine:
             self._finish(info, RequestStatus.REJECTED, f"queue full (max_waiting={mw})")
         else:
             self._enqueue(info)
+        if self.recovery is not None:
+            # journaled once the outcome is known: the record carries a
+            # terminal-at-submit status too, so replay needs no re-validation
+            self.recovery.record_submit(info)
         return rid
 
     def _enqueue(self, info: _ReqInfo) -> None:
@@ -1050,6 +1081,8 @@ class Engine:
             self._waiting.remove(rid)
         self.stats["cancelled"] += 1
         self._finish(info, RequestStatus.CANCELLED, reason)
+        if self.recovery is not None:
+            self.recovery.record_cancel(rid, reason)
         return RequestStatus.CANCELLED
 
     def preempt(self, rid: int) -> bool:
@@ -1144,6 +1177,11 @@ class Engine:
             return torch.sum(torch.abs(pool), dim=(0, 2, 3, 4), dtype=torch.float32)
 
         return (per_block(self.caches["kpool"]) + per_block(self.caches["vpool"])).cpu().numpy()
+
+    def _refresh_kv_sums(self) -> None:
+        """(Re)baseline the per-block sums from the device pools: at init
+        and after a snapshot restore."""
+        self._kv_sums = self._pool_sums()
 
     def _audit_kv_checksums(self) -> None:
         """Recompute the per-block sums and compare them with the last
@@ -1274,7 +1312,16 @@ class Engine:
         the lane's chunks), then advance every occupied slot by one decode
         token.  Returns False once the engine is idle.  With ABFT on, a
         step whose checks flag is retried before anything is emitted
-        (:meth:`_sdc_recover`)."""
+        (:meth:`_sdc_recover`).  With a RecoveryManager attached, the
+        step's emitted tokens are journaled (and a snapshot staged on its
+        cadence) before the step returns: the end of every step is the
+        durability boundary."""
+        alive = self._step_core(on_token)
+        if self.recovery is not None:
+            self.recovery.after_step()
+        return alive
+
+    def _step_core(self, on_token: TokenCallback | None) -> bool:
         if self._abft and self._kv_sums is not None:
             # audit BEFORE decode, against the blocks the PREVIOUS step
             # legally wrote: a KV flip between steps quarantines its owner
@@ -1403,6 +1450,8 @@ class Engine:
         if info.status in TERMINAL_STATUSES:
             del self._reqs[rid]
             del self._outputs[rid]
+            if self.recovery is not None:
+                self.recovery.record_pop(rid)
         return result
 
     def run(
@@ -1414,6 +1463,20 @@ class Engine:
         while self.step(on_token):
             pass
         return [self.pop_result(r) for r in rids]
+
+    def close(self) -> None:
+        """Flush and close the recovery journal (idempotent; nothing to do
+        without durability).  A simulated crash skips this on purpose:
+        every journal record is already on disk at the end of its step."""
+        if self.recovery is not None:
+            self.recovery.close()
+            self.recovery = None
+
+    def __enter__(self) -> "Engine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class StaticEngine:
@@ -1431,6 +1494,11 @@ class StaticEngine:
             raise ValueError(
                 "StaticEngine serves the contiguous layout only (fixed lockstep "
                 "batches have no block pool); use Engine for the paged layout"
+            )
+        if scfg.durability.snapshot_dir:
+            raise ValueError(
+                "StaticEngine keeps no request state to snapshot; crash "
+                "recovery (snapshot_dir) needs the continuous Engine"
             )
         if cfg.family == "encdec":
             raise ValueError("StaticEngine serves decoder-only LMs")

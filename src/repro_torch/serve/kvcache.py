@@ -296,6 +296,31 @@ class BlockPool:
             return shared, None
         return shared, self.index.get((prev, tuple(tail)))
 
+    def to_state(self) -> dict:
+        """JSON-safe image of the whole ownership state, the prefix index
+        included (as ``[prev, tokens, bid]``), for the engine snapshot: a
+        restored pool keeps aliasing the restored device blocks."""
+        return {
+            "num_blocks": self.num_blocks,
+            "block_size": self.block_size,
+            "refcount": list(self.refcount),
+            "free": list(self.free),
+            "external": sorted(self.external),
+            "index": [[prev, list(tokens), bid] for (prev, tokens), bid in self.index.items()],
+        }
+
+    @classmethod
+    def from_state(cls, state: dict) -> "BlockPool":
+        """Rebuild a pool from :meth:`to_state` output (``_keys_of`` is
+        re-derived through :meth:`register`)."""
+        pool = cls(int(state["num_blocks"]), int(state["block_size"]))
+        pool.refcount = [int(c) for c in state["refcount"]]
+        pool.free = [int(b) for b in state["free"]]
+        pool.external = {int(b) for b in state["external"]}
+        for prev, tokens, bid in state["index"]:
+            pool.register(int(prev), tuple(int(t) for t in tokens), int(bid))
+        return pool
+
     def assert_invariants(self, live_refs: dict[int, int]) -> None:
         """``live_refs``: physical block -> references derived from the
         engine's live rows.  Raises on any ownership drift."""

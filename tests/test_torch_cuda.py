@@ -67,8 +67,10 @@ decays 0, 1 and 1e-30, misaligned operands and in place, a row of a
 B = 8, H = 32 call bitwise that row called alone; both kernels' own plans
 equal the Python mirrors.  The engine's scheduler runs there too, at the
 smoke config's size under ``matmul="pallas"``: the chunked-prefill lane
-gives monolithic admission's tokens and a preempted request replays to
-its uninterrupted tokens, bitwise at temperature 0.8.
+gives monolithic admission's tokens, a preempted request replays to its
+uninterrupted tokens, and an engine killed mid-run and restored from its
+snapshot and journal finishes as the uninterrupted run, all bitwise at
+temperature 0.8.
 """
 
 import ctypes
@@ -105,6 +107,7 @@ from repro_torch.kernels.matmul.matmul import (
     matmul_plain,
 )
 from repro_torch.serve import engine as te
+from repro_torch.serve import recovery
 
 
 @pytest.fixture
@@ -1399,3 +1402,46 @@ def test_engine_on_the_card_preempted_equals_uninterrupted(cuda, layout):
     got, stats = run(1, reqs[:1], urgent=urgent)
     assert stats["preempted"] == 1 and got[0].preemptions == 1
     assert got[0].tolist() == want[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_engine_on_the_card_crash_restore_equals_uninterrupted(cuda, layout, tmp_path):
+    """Under ``matmul="pallas"`` at temperature 0.8, through the kernels: a
+    durable engine killed after 6 steps (a snapshot at step 4, the journal
+    after it) and restored from disk finishes every request bitwise as the
+    uninterrupted run, replaying the journaled tokens, with no leaked
+    block."""
+    cfg = get("smollm-360m-smoke")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    kv = te.KVConfig(layout="paged", block_size=16) if layout == "paged" \
+        else te.KVConfig(decode_block=16)
+    spec = [(5, 12), (37, 9), (3, 14), (23, 10), (58, 4)]
+    reqs = _smoke_requests(cfg, spec, 17)
+    base = te.ServeConfig(max_len=64, temperature=0.8, seed=11, kv=kv,
+                          scheduler=te.SchedulerConfig(batch=3, prefill_bucket=16),
+                          kernel=te.KernelConfig(matmul="pallas"))
+    want = [o.tolist() for o in te.Engine(cfg, params, base).run(reqs)]
+    scfg = dataclasses.replace(base, durability=te.DurabilityConfig(
+        snapshot_dir=str(tmp_path), snapshot_every=4))
+    eng = te.Engine(cfg, params, scfg)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(6):
+        eng.step()
+    eng.recovery.wait()
+    eng.recovery.journal._f.close()  # the simulated kill
+    del eng
+    kern = dec.flash_decode_paged_cuda if layout == "paged" else dec.flash_decode_cuda
+    for w in (kern, matmul_cuda):
+        w.launches = 0
+    eng2, report = recovery.restore_engine(cfg, params, scfg)
+    assert report.source == "snapshot" and report.tokens_replayed > 0
+    while eng2.step():
+        pass
+    got = [eng2.pop_result(r.request_id).tolist() for r in reqs]
+    assert got == want
+    assert eng2.stats["replayed"] > 0 and kern.launches > 0 and matmul_cuda.launches > 0
+    if eng2.pool is not None:
+        assert eng2.pool.free_blocks == eng2.pool.num_blocks - 1
+    eng2.close()

@@ -127,9 +127,13 @@ def test_lifecycle_cancel_reject_and_unported_fields(smol):
         rid = eng.submit(req)  # max_waiting=1: one queued request at a time
         assert eng.status(rid) == te.RequestStatus.WAITING
         eng.cancel(rid)
-    # crash recovery is still A8
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        te.DurabilityConfig(snapshot_dir="x")
+    # ported since (ROADMAP A8): crash recovery, with the reference's bounds
+    dur = te.DurabilityConfig(snapshot_dir="x")
+    assert (dur.snapshot_dir, dur.snapshot_every, dur.snapshot_keep,
+            dur.journal_fsync_every) == ("x", 32, 3, 1)
+    for field in ("snapshot_every", "snapshot_keep", "journal_fsync_every"):
+        with pytest.raises(ValueError, match=field):
+            te.DurabilityConfig(snapshot_dir="x", **{field: 0})
 
 
 def test_nan_guard_quarantines_only_the_poisoned_row(smol, monkeypatch):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor the JAX package, and no source line of the port or of
-``chip_smoke.py`` imports them."""
+neither JAX nor the JAX package (nor ``ml_dtypes``, which the card's
+machine lacks), and no source line of the port or of ``chip_smoke.py``
+imports them."""
 
 import os
 import re
@@ -18,7 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
+                if m in ("jax", "jaxlib", "repro", "ml_dtypes")
+                or m.startswith(("jax.", "jaxlib.", "repro.", "ml_dtypes.")))
 print(len(names), ",".join(leaked))
 """
 
@@ -36,7 +38,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
 
 
 def test_no_source_line_imports_jax_or_the_reference():
-    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro(\.| ))", re.M)
+    pattern = re.compile(
+        r"^\s*(import jax|from jax|import repro\b|from repro(\.| )|import ml_dtypes|from ml_dtypes)",
+        re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

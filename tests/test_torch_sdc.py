@@ -229,8 +229,8 @@ def test_sdc_retry_budget_exhaustion_quarantines(smol):
 def test_sdc_weight_corruption_raises_before_emission(smol):
     """Weight rot cannot be localized (both sides of the checksum identity
     use the corrupt operand): the weight fingerprint raises
-    SDCUnlocalizedError before the step emits anything.  (Restoring from a
-    snapshot is ROADMAP A8.)"""
+    SDCUnlocalizedError before the step emits anything (the restore that
+    follows is the next test's)."""
     cfg, params = smol
     eng, oracle_eng = _sdc_pair(cfg, params, "checksum")
     rng = np.random.default_rng(41)
@@ -253,6 +253,59 @@ def test_sdc_weight_corruption_raises_before_emission(smol):
     for r in reqs:  # everything emitted before the flip is the oracle's
         got = eng.pop_result(r.request_id).tolist()
         assert got == oracle[r.request_id][: len(got)]
+
+
+@pytest.mark.sdc
+def test_sdc_weight_corruption_raises_then_restores(smol, tmp_path):
+    """After the reference's test of the same name: the weight fingerprint
+    raises before the poisoned step emits or journals anything, and
+    restoring from the newest snapshot with the pristine params finishes
+    every request bitwise its ABFT-off oracle."""
+    from repro_torch.serve import recovery
+
+    cfg, params = smol
+    _, oracle_eng = _sdc_pair(cfg, params, "checksum")
+    scfg = te.ServeConfig(
+        max_len=MAX_LEN, temperature=0.7, seed=5,
+        scheduler=te.SchedulerConfig(batch=3, prefill_bucket=16),
+        kv=te.KVConfig(layout="paged", block_size=BS),
+        kernel=te.KernelConfig(abft="checksum"),
+        durability=te.DurabilityConfig(
+            snapshot_dir=str(tmp_path / "snaps"), snapshot_every=2, snapshot_keep=2),
+    )
+    rng = np.random.default_rng(41)
+    reqs = [te.Request(rng.integers(0, cfg.vocab, 10).astype(np.int32), max_new=16,
+                       request_id=i) for i in range(3)]
+    oracle = chaos.oracle_outputs(oracle_eng, reqs)
+    eng = te.Engine(cfg, params, scfg, device="cpu")
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(5):  # past snapshot_every: a snapshot has published
+        eng.step()
+        chaos.audit(eng)
+    assert eng._slots, "workload drained before the flip landed"
+    eng.params, _leaf = chaos.flip_weight_bit(eng.params, rng)
+    with pytest.raises(te.SDCUnlocalizedError, match="weight fingerprint"):
+        eng.step()
+    assert eng.stats["sdc_detected"] == 1
+    # the operator's response: abandon the poisoned process (the journal's
+    # bytes survive, its fd is dropped) and restore with pristine params
+    eng.recovery.wait()
+    eng.recovery.journal._f.close()
+    del eng
+    eng2, report = recovery.restore_engine(cfg, params, scfg, device="cpu")
+    chaos.audit(eng2)
+    assert report.source == "snapshot"
+    while eng2.step():
+        chaos.audit(eng2)
+    assert eng2.stats["sdc_detected"] == 0
+    assert eng2.pool.free_blocks == eng2.pool.num_blocks - 1
+    for r in reqs:
+        res = eng2.pop_result(r.request_id)
+        assert res.status == te.RequestStatus.FINISHED, (r.request_id, res.reason)
+        assert res.tolist() == oracle[r.request_id], (
+            f"rid {r.request_id} diverged after the weight-corruption restore")
+    eng2.close()
 
 
 @pytest.mark.sdc
