@@ -11,6 +11,7 @@
     python3 chip_smoke.py --recur --baseline OLD/   # ... beside OLD/{linear_scan,wkv6}.cu
     python3 chip_smoke.py --sched     # the scheduler at full width (phase 10)
     python3 chip_smoke.py --recover   # crash recovery at full width (phase 11)
+    python3 chip_smoke.py --zoo       # the rest of the model zoo at full width (phase 12)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -178,7 +179,58 @@ result.  Phases, any failure of which exits non-zero:
    commits' ms a step, per snapshot the host-blocking stage ms, the writer
    thread's ms and the bytes; with (a)-(d)'s restore ms (read and verify,
    host to device), replayed tokens and the replay steps' share of the
-   drain.  Phases 6 and 7 each crash and restore their served workload too.
+   drain.  Phases 6 and 7 each crash and restore their served workload too;
+12. the rest of the model zoo at full width (run after phase 7; random bf16
+   weights drawn on the card from a seeded generator with the projections,
+   experts and routers x40, so that each layer moves the residual stream,
+   each model's freed before the next), every kernel launch counted into
+   the summary.  For each model: both decode-attention kernels against
+   their plain versions at its cache's shape (bitwise, timed as in phase
+   2); one decode step of 8 rows through the kernels within 5% of the plain
+   path's logit scale, with every GEMM and decode-attention call of the
+   step (the first of each shape) held to its plain version on the model's
+   own operands, and the same step with layer 0's decode attention
+   returning zeros missing the plain logits by more than 5% (so the gate
+   can see one wrong layer); every greedy run's tokens no more than half
+   one value.  (a) gemma3-12b at full depth (48 layers: 8 groups of 5
+   local layers at window 1024 and one global; 16 query heads on 8 KV heads
+   of 240): decode attention at its global cache's shape (4096 slots) and
+   its local rings' (1024), then 16 requests (two of 1500-2000 prompt tokens, whose local
+   rings wrap at prefill; 14 of 16-256; 48-64 new tokens) served with 8
+   slots at ``max_len`` 4096, contiguous (the reference refuses paged for
+   sliding windows), under ``"xla"`` and ``"pallas"``: every request
+   finished, decode attention 48 launches a decode step, the GEMM 289 a
+   decode step (six projections a layer and the unembedding), 288 a
+   prefill call and one a prompt; one profiled decode step; a
+   kill and restore of the ``"pallas"`` workload at 12 of the 48 layers,
+   bitwise; (b) granite-moe-1b-a400m at full depth (24 layers, 32 experts
+   top-8 of 512) on phase 3's workload: contiguous under ``"xla"`` and
+   ``"pallas"`` (decode attention 24 a step, the GEMM 97), paged without
+   prefix sharing under both, tokens equal to contiguous; paged with
+   prefix sharing under ``"pallas"``, where only the requests that alias
+   the first prompt's prefix blocks may differ (their K/V past layer 0
+   depend on the whole prompt through the expert capacity, as in the
+   reference), the differing ones printed; a prompt's K, V and logits the
+   same bits alone and in an 8-prompt admission under ``"pallas"``;
+   ``abft="checksum"`` on four requests of 16 tokens: the ABFT-off tokens,
+   no detection, through the checksum GEMM; one profiled decode step with
+   the card time of the experts' products and of the MoE layers; (c)
+   grok-1-314b at full width, 4 of its 64 layers (about 40 GB: the depth
+   is cut for memory): an 8-prompt prefill of 64 tokens and 16 greedy
+   decode steps through the kernels and the plain path in lockstep, each
+   within 5% of the logit scale, decode attention 4 launches a step; one
+   MoE layer's card time at the decode shape beside its byte bound; (d)
+   whisper-medium at full depth (24 encoder and 24 decoder layers, 1500
+   frames) through ``EncDecModel``: ``prefill`` of 8 seeded frame tensors
+   and 4-token prompts, then 64 greedy ``decode_step``s at ``max_len`` 448
+   through the kernels (decode attention 24 launches a step), the prefill's
+   and the first step's logits within 5% of the plain path's, the
+   prefill's and the first step's operands held as above, the tokens
+   printed; (e) llava-next-34b at full width, 16 of its 60 layers (cut
+   for memory): ``prefill`` of 576 seeded patches of 1024 and a 64-token
+   prompt, 16 lockstep decode steps within 5%, then 8 text-only requests
+   served through the ``Engine`` (contiguous: the reference refuses paged
+   for the VLM family), decode attention 16 launches a step.
 
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
@@ -197,11 +249,13 @@ and the scan's part of phase 7 (a, b): per case the kernel's plan (body,
 grid, shared memory, bytes in flight), held equal to the kernel's own.
 ``--recur --baseline DIR`` also builds DIR's ``linear_scan.cu`` and
 ``wkv6.cu`` (the same C entry points, say the parent commit's) and times
-them beside this build's on the same inputs, in turns.
+them beside this build's on the same inputs, in turns.  ``--zoo`` runs
+phase 1 and phase 12, whose JSON it prints last (no ``ok`` line).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -807,9 +861,10 @@ def latency(stamps: dict[int, list[float]], t0: float) -> dict:
 
 
 def serve_once(cfg, params, layout: str, matmul: str, reqs: list, abft_mode: str = "off",
-               max_len: int = MAX_LEN, decode_block: int | None = BS):
-    kv = (KVConfig(layout="paged", block_size=BS) if layout == "paged"
-          else KVConfig(decode_block=decode_block))
+               max_len: int = MAX_LEN, decode_block: int | None = BS,
+               prefix_sharing: bool = True):
+    kv = (KVConfig(layout="paged", block_size=BS, prefix_sharing=prefix_sharing)
+          if layout == "paged" else KVConfig(decode_block=decode_block))
     scfg = ServeConfig(
         max_len=max_len,
         scheduler=SchedulerConfig(batch=SLOTS, prefill_bucket=16),
@@ -885,18 +940,21 @@ class HostTimer:
 
 
 def counted_serve_runs(cfg, params, reqs, per_call: dict, totals: dict, tag: str,
+                       gemm: tuple[int, int, int] | None = None, tokens: dict | None = None,
                        **serve_kw) -> tuple[list, Engine]:
     """Serve ``reqs`` on the contiguous layout with ``matmul="xla"`` and
     ``"pallas"``, counting ``Model.prefill`` calls and decode steps.  Each
     kernel named in ``per_call`` must launch exactly (launches per prefill
     call, per decode step) times those counts; no other kernel may launch
-    but the GEMM, and it only under ``"pallas"``.  Returns the runs and the
-    last engine."""
+    but the GEMM, and it only under ``"pallas"``, where with ``gemm`` =
+    (per prefill call, per decode step, per admitted prompt) it must
+    launch exactly that often.  Returns the runs and the last engine; with
+    ``tokens`` also each run's tokens under its ``matmul``."""
     runs = []
     for matmul in ("xla", "pallas"):
         calls = HostTimer({"prefill": (Model, "prefill"), "decode": (Model, "decode_step")})
         try:
-            res, _, eng = serve_once(cfg, params, "contiguous", matmul, reqs, **serve_kw)
+            res, toks, eng = serve_once(cfg, params, "contiguous", matmul, reqs, **serve_kw)
         finally:
             calls.restore()
         n_pre, n_dec = calls.calls["prefill"], calls.calls["decode"]
@@ -911,9 +969,17 @@ def counted_serve_runs(cfg, params, reqs, per_call: dict, totals: dict, tag: str
             fail(f"{tag}/{matmul}: unexpected kernel launches {got}")
         if eng.stats["admitted"] != len(reqs):
             fail(f"{tag}/{matmul}: admitted {eng.stats['admitted']} of {len(reqs)}")
+        if gemm is not None and matmul == "pallas":
+            n_gemm = gemm[0] * n_pre + gemm[1] * n_dec + gemm[2] * len(reqs)
+            if got["gemm_bf16"] != n_gemm:
+                fail(f"{tag}/{matmul}: gemm_bf16 launched {got['gemm_bf16']} times, want "
+                     f"{n_gemm} ({gemm} per prefill call, decode step, prompt)")
+            want["gemm_bf16"] = n_gemm
         print(f"{tag}/{matmul}: " + ", ".join(f"{n} launched {got[n]}" for n in want)
               + f" for {n_pre} prefill calls and {n_dec} decode steps", flush=True)
         res.update(prefill_calls=n_pre, decode_steps=n_dec)
+        if tokens is not None:
+            tokens[matmul] = toks
         runs.append(res)
         for n, c in got.items():
             totals[n] += c
@@ -922,7 +988,8 @@ def counted_serve_runs(cfg, params, reqs, per_call: dict, totals: dict, tag: str
 
 def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous",
                    abft_mode: str = "off", focus: tuple[str, ...] = (),
-                   max_len: int = MAX_LEN, decode_block: int | None = BS) -> dict:
+                   max_len: int = MAX_LEN, decode_block: int | None = BS,
+                   ranges: dict | None = None) -> dict:
     """Where a decode step's time goes on the kernel path
     (``matmul="pallas"``): host wall time per step without the profiler,
     then the card's busy time per step from ``torch.profiler`` (the union
@@ -931,7 +998,10 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
     fingerprint, the checked GEMMs (``AbftTrace.mm`` in all), the verdict
     op ``ops.matmul_abft`` and the checksum kernel's wrapper.  With
     ``focus``, also, for each name in it, the card time per step of the
-    kernels whose name holds it, and their share of the busy time."""
+    kernels whose name holds it, and their share of the busy time; with
+    ``ranges`` (name -> (object, attribute)), the card time per step of
+    the kernels each function launches (a ``record_function`` range around
+    it while profiling), and its share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -964,21 +1034,41 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
     if timer is not None:
         timer.restore()
         host_parts = {k: v / steps for k, v in timer.ms.items()}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    saved = []
+    for key, (obj, attr) in (ranges or {}).items():
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, fn))
+
+        def ranged(*a, _fn=fn, _key=key, **kw):
+            with torch.profiler.record_function(_key):
+                return _fn(*a, **kw)
+
+        setattr(obj, attr, ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    range_ms = {}
+    for key in ranges or {}:
+        evs = [e for e in prof.events() if e.name == key and e.device_type != DeviceType.CUDA]
+        range_ms[key] = sum(getattr(e, "device_time_total", 0.0) for e in evs) / steps / 1e3
+    # a record_function range also leaves an annotation on the device
+    # timeline, which is no kernel
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name not in (ranges or {})]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for s, e in spans:  # union of kernel intervals, in microseconds
         if e > end:
             busy += e - max(s, end)
             end = e
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     busy_ms = busy / steps / 1e3
     focus_ms = {f: sum(t for n, t in by_name.items() if f in n) / steps / 1e3 for f in focus}
@@ -989,6 +1079,8 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
         top_kernels_ms_per_step={n[:80]: t / steps / 1e3 for n, t in top},
         host_ms_per_step=host_parts, focus_ms_per_step=focus_ms,
         focus_share_of_busy={f: t / busy_ms if spans else None for f, t in focus_ms.items()},
+        range_ms_per_step=range_ms,
+        range_share_of_busy={f: t / busy_ms if spans else None for f, t in range_ms.items()},
     )
     print(f"decode step ({cfg.name}, {layout}, pallas, abft={abft_mode}, {SLOTS} live rows): "
           f"{step_ms:.2f} ms wall, card busy {res['device_busy_ms_per_step']:.3f} ms per step "
@@ -1000,6 +1092,9 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
     for f, t in focus_ms.items():
         print(f"  {f}: {t:.3f} ms/step of card time, share of busy "
               f"{res['focus_share_of_busy'][f]}", flush=True)
+    for f, t in range_ms.items():
+        print(f"  kernels launched inside {f}: {t:.3f} ms/step of card time, share of busy "
+              f"{res['range_share_of_busy'][f]}", flush=True)
     return res
 
 
@@ -1484,8 +1579,9 @@ def timed_restore(cfg, params, scfg, tag: str) -> tuple[Engine, object, dict]:
 def crash_run(cfg, params, reqs: list, oracle: list, tag: str, *, layout: str = "paged",
               corrupt: bool = False, chain: bool = False, mid_flight: bool = True,
               need: tuple[str, ...] | None = None, max_len: int = MAX_LEN,
-              decode_block: int | None = BS) -> dict:
-    """Serve ``reqs`` durably, kill the engine after step ``CRASH_AT``
+              decode_block: int | None = BS, every: int = SNAP_EVERY) -> dict:
+    """Serve ``reqs`` durably (a snapshot every ``every`` steps), kill the
+    engine after step ``CRASH_AT``
     (popping every terminal result on the way), optionally corrupt the
     newest snapshot, restore, optionally kill and restore again
     ``CHAIN_STEPS`` steps later, drain, and hold every request's tokens to
@@ -1495,7 +1591,8 @@ def crash_run(cfg, params, reqs: list, oracle: list, tag: str, *, layout: str = 
     have launched."""
     directory = tempfile.mkdtemp(prefix="chip_smoke_snap_")
     try:
-        scfg = recover_scfg(layout, directory, max_len=max_len, decode_block=decode_block)
+        scfg = recover_scfg(layout, directory, max_len=max_len, decode_block=decode_block,
+                            every=every)
         for w in WRAPPERS.values():
             w.launches = 0
         eng = Engine(cfg, params, scfg, device=DEV)
@@ -1592,22 +1689,22 @@ def crash_run(cfg, params, reqs: list, oracle: list, tag: str, *, layout: str = 
         shutil.rmtree(directory, ignore_errors=True)
 
 
-# the recurrent models' kill and restore (phases 6 (f), 7 (g)) run at a cut
-# depth, and phase 4's SDC episodes at SDC_LAYERS: at full depth phase 11
-# made the whole script ~190 s longer
-CRASH_LAYERS = {"rwkv6-1.6b": 6, "recurrentgemma-2b": 8}
+# the recurrent models' and gemma3's kill and restore (phases 6 (f), 7 (g),
+# 12 (a)) run at a cut depth, and phase 4's SDC episodes at SDC_LAYERS: at
+# full depth phase 11 made the whole script ~190 s longer
+CRASH_LAYERS = {"rwkv6-1.6b": 6, "recurrentgemma-2b": 8, "gemma3-12b": 12}
 
 
-def recurrent_crash(cfg, make_params, reqs: list, tag: str, need: tuple[str, ...],
-                    totals: dict, **common) -> dict:
-    """Phase 11's kill and restore of a recurrent model's served workload at
-    ``CRASH_LAYERS`` depth (weights from ``make_params``), held to the
-    uninterrupted ``"pallas"`` run at that depth."""
+def cut_crash(cfg, make_params, reqs: list, tag: str, need: tuple[str, ...],
+              totals: dict, every: int = SNAP_EVERY, **common) -> dict:
+    """Phase 11's kill and restore of a model's served workload
+    (contiguous) at ``CRASH_LAYERS`` depth (weights from ``make_params``),
+    held to the uninterrupted ``"pallas"`` run at that depth."""
     cut = dataclasses.replace(cfg, n_layers=CRASH_LAYERS[cfg.name])
     params = make_params(cut)
     oracle, toks, _ = serve_once(cut, params, "contiguous", "pallas", reqs, **common)
     crash = crash_run(cut, params, reqs, toks, tag, layout="contiguous", mid_flight=False,
-                      need=need, **common)
+                      need=need, every=every, **common)
     for run in (oracle, crash):
         for n, c in run["launches"].items():
             totals[n] += c
@@ -2154,7 +2251,7 @@ def rwkv_phase(totals: dict, results: dict) -> dict:
     prof = profile_decode(cfg, params, reqs, focus=("wkv6",))
     print(f"-- (f) kill at step {CRASH_AT}, restore and drain (phase 11), at "
           f"{CRASH_LAYERS[cfg.name]} of the {cfg.n_layers} layers", flush=True)
-    crash = recurrent_crash(cfg, rwkv_params, reqs, "crash/rwkv", ("wkv6", "gemm_bf16"), totals)
+    crash = cut_crash(cfg, rwkv_params, reqs, "crash/rwkv", ("wkv6", "gemm_bf16"), totals)
     return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof, crash=crash)
 
 
@@ -2352,13 +2449,471 @@ def rg_phase(totals: dict, results: dict) -> dict:
     print("-- (e) where a decode step's time goes", flush=True)
     prof = profile_decode(cfg, params, reqs, focus=("linear_scan", DECODE_KERNEL), **common)
     print("-- (f) one full-width decode step, kernels against the plain path", flush=True)
-    step_err = check_decode_step(cfg, params)
+    step = check_decode_step(cfg, params)
     print(f"-- (g) kill at step {CRASH_AT}, restore and drain (phase 11), at "
           f"{CRASH_LAYERS[cfg.name]} of the {cfg.n_layers} layers", flush=True)
-    crash = recurrent_crash(cfg, rg_params, reqs, "crash/recurrentgemma",
+    crash = cut_crash(cfg, rg_params, reqs, "crash/recurrentgemma",
                             ("linear_scan", "flash_decode", "gemm_bf16"), totals, **common)
     return dict(params=n_params, serve=runs, layer0=layer, decode_profile=prof,
-                decode_step_max_abs_err=step_err, crash=crash)
+                decode_step=step, crash=crash)
+
+
+# ------------------------------------------------------------ the model zoo --
+
+ZOO_LAYERS = {"grok-1-314b": 4, "llava-next-34b": 16}  # (c), (e): cut for memory
+GEMMA_MAX_LEN = 4096
+WHISPER_MAX_LEN, WHISPER_PROMPT, WHISPER_STEPS = 448, 4, 64
+ZOO_PREFILL, ZOO_STEPS = 64, 16  # (c), (e): prompt tokens, lockstep decode steps
+ZOO_GAIN = 40  # init's projections x40: a layer's output about its input's size
+KERNEL_PATH = L.Dispatch(matmul="pallas", attention="flash")
+
+
+def zoo_params(cfg, seed: int = 0) -> dict:
+    """Random weights drawn on the card from a seeded generator, in the
+    config's dtype, with every projection, expert matrix and router x
+    ``ZOO_GAIN``.  Init draws them at 0.02/sqrt(fan-in), so a layer adds
+    about 0.02^2 of its input to the residual stream: the logits barely
+    depend on any layer and greedy tokens repeat one value.  At gain 0.8 a
+    layer moves the stream, so a wrong kernel output moves the logits (the
+    probe of :func:`check_decode_step` measures how far) and the tokens
+    vary (:func:`varied`).  Embeddings, norms and the patch projection keep
+    init's scale."""
+    params = build(cfg).init(torch.Generator(device=DEV).manual_seed(seed), DEV)
+
+    def scale(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                scale(v)
+            elif k.startswith("w") or k == "router":
+                v.mul_(ZOO_GAIN)
+
+    for k in ("layers", "enc_layers", "dec_layers"):
+        if k in params:
+            scale(params[k])
+    return params
+
+
+def varied(tag: str, rows: list) -> dict:
+    """Fails when one token is more than half of all the tokens ``rows``
+    hold: a run whose greedy tokens collapse to one value cannot tell two
+    paths apart by their tokens."""
+    flat = [t for r in rows for t in r]
+    top = max(flat.count(t) for t in set(flat)) / len(flat)
+    if top > 0.5:
+        fail(f"{tag}: one token is {100 * top:.0f}% of the {len(flat)} tokens; the run's "
+             f"tokens cannot tell two paths apart")
+    return dict(distinct=len(set(flat)), tokens=len(flat), top_share=top)
+
+
+def cut(name: str):
+    """``ZOO_LAYERS``' depth of a registry config, at its published width."""
+    return dataclasses.replace(get(name), n_layers=ZOO_LAYERS[name])
+
+
+def logit_gate(tag: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The kernel path's logits within 5% of the plain path's scale (all
+    bf16 layers on both sides, rounded in other places)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()) or err > 0.05 * scale:
+        fail(f"{tag}: kernel path vs plain path max err {err:.3e} > 5% of the logit scale "
+             f"{scale:.3e}")
+    return dict(max_abs_err=err, scale=scale)
+
+
+def lockstep(tag: str, model, params, state_k, state_p, logits_k, logits_p, steps: int,
+             n_attn: int, totals: dict) -> dict:
+    """Greedy decode through the kernels (``KERNEL_PATH``) and the plain
+    path in lockstep, both fed the plain path's token, MoE blocks routing
+    as the plain path did (:class:`SharedRouting`): each step's logits
+    within 5% of the scale, decode attention launched ``n_attn`` times a
+    kernel step (the plain path launches no kernel)."""
+    errs = [logit_gate(f"{tag} prefill", logits_k, logits_p)]
+    launches = {n: 0 for n in WRAPPERS}
+    routing = SharedRouting(model.cfg)
+    toks = []
+    for i in range(steps):
+        tok = logits_p.argmax(-1)[:, None]
+        toks.append(tok[:, 0].tolist())
+        for w in WRAPPERS.values():
+            w.launches = 0
+        with routing.record():
+            logits_p, state_p = model.decode_step(params, tok, state_p)
+        with routing.replay():
+            logits_k, state_k = model.decode_step(params, tok, state_k, dispatch=KERNEL_PATH)
+        torch.cuda.synchronize()
+        if WRAPPERS["flash_decode"].launches != n_attn:
+            fail(f"{tag} step {i}: decode attention launched "
+                 f"{WRAPPERS['flash_decode'].launches} times, want {n_attn}")
+        for n, w in WRAPPERS.items():
+            launches[n] += w.launches
+        errs.append(logit_gate(f"{tag} step {i}", logits_k, logits_p))
+    for n, c in launches.items():
+        totals[n] += c
+    worst = max(e["max_abs_err"] / e["scale"] for e in errs)
+    spread = varied(tag, [list(r) for r in zip(*toks)])
+    print(f"{tag}: prefill and {steps} decode steps, kernels vs plain: worst max |diff| "
+          f"{100 * worst:.2f}% of the logit scale; launches {launches}; {spread['distinct']} "
+          f"distinct of {spread['tokens']} tokens", flush=True)
+    return dict(errors=errs, worst_rel=worst, launches=launches, tokens=spread,
+                tokens_row0=[t[0] for t in toks])
+
+
+def gemma_workload(cfg, seed: int = 0) -> list:
+    """16 requests from a seeded generator: two of 1500-2000 prompt tokens
+    (past the 1024-token window: their local rings wrap at prefill), then
+    14 of 16-256; 48-64 new tokens each."""
+    rng = torch.Generator().manual_seed(seed)
+    lens = (torch.randint(1500, 2001, (2,), generator=rng).tolist()
+            + torch.randint(16, 257, (14,), generator=rng).tolist())
+    budgets = torch.randint(48, 65, (16,), generator=rng).tolist()
+    return [Request(torch.randint(0, cfg.vocab, (n,), generator=rng).numpy().astype(np.int32),
+                    max_new=b, request_id=i)
+            for i, (n, b) in enumerate(zip(lens, budgets))]
+
+
+def gemma_phase(totals: dict, results: dict) -> dict:
+    """(a): gemma3-12b at full depth."""
+    cfg = get("gemma3-12b")
+    ge, ng = cfg.global_every, cfg.n_layers // cfg.global_every
+    G, W = cfg.n_heads // cfg.n_kv_heads, cfg.sliding_window
+    check_decode(results, SLOTS, cfg.n_kv_heads, G, cfg.resolved_head_dim, GEMMA_MAX_LEN,
+                 attn_ops._pick_decode_bk(GEMMA_MAX_LEN),
+                 [16, 100, 777, 1024, 1500, 2063, 3000, 4096], suffix="_d240_global")
+    # the local rings: every slot live in the rows past the window
+    check_decode(results, SLOTS, cfg.n_kv_heads, G, cfg.resolved_head_dim, W,
+                 attn_ops._pick_decode_bk(W), [16, 100, 777, W, W, W, 500, W],
+                 suffix="_d240_local")
+    params = zoo_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    # a decode step's projections: wq, wk, wv, wo and the two MLP matrices a
+    # layer, then the unembedding; a prefill call the same layers' six and
+    # each prompt's head alone
+    per_layer = 4 + (3 if cfg.mlp_act == "swiglu" else 2)
+    gemm = (per_layer * cfg.n_layers, per_layer * cfg.n_layers + 1, 1)
+    print(f"-- (a) serve {cfg.name}: {cfg.n_layers} layers ({ng} groups of {ge - 1} local "
+          f"layers at window {cfg.sliding_window} and one global), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, {n_params / 1e9:.3f} B parameters; "
+          f"max_len {GEMMA_MAX_LEN}; the GEMM launches {gemm[1]} times a decode step",
+          flush=True)
+    reqs = gemma_workload(cfg)
+    common = dict(max_len=GEMMA_MAX_LEN, decode_block=None)
+    warm = [dataclasses.replace(r, max_new=4) for r in reqs[2:4]]
+    serve_once(cfg, params, "contiguous", "xla", warm, **common)  # warm-up, not kept
+    toks: dict = {}
+    runs, eng = counted_serve_runs(cfg, params, reqs, {"flash_decode": (0, cfg.n_layers)},
+                                   totals, "gemma3", gemm=gemm, tokens=toks, **common)
+    spread = {m: varied(f"gemma3/{m}", t) for m, t in toks.items()}
+    ring = eng.caches["groups"]["local"]["k"].shape[3]
+    del eng
+    if not all(len(r.prompt) > ring for r in reqs[:2]):
+        fail("gemma3: the long prompts do not wrap their local rings")
+    print(f"gemma3: the two long prompts ({[len(r.prompt) for r in reqs[:2]]} tokens) wrapped "
+          f"their {ring}-slot local rings", flush=True)
+    prof = profile_decode(cfg, params, reqs, focus=(DECODE_KERNEL, GEMM_KERNEL), **common)
+    step = check_decode_step(cfg, params, SLOTS, GEMMA_MAX_LEN, probe=True)
+    print(f"-- (a) kill at step {CRASH_AT}, restore and drain (phase 11), at "
+          f"{CRASH_LAYERS[cfg.name]} of the {cfg.n_layers} layers", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    # one 2.3 GB snapshot before the kill (at 12 layers), not three
+    crash = cut_crash(cfg, zoo_params, reqs, "crash/gemma3", ("flash_decode", "gemm_bf16"),
+                      totals, every=48, **common)
+    return dict(params=n_params, gemm_per_decode_step=gemm[1], serve=runs, tokens=spread,
+                decode_profile=prof, decode_step=step, crash=crash)
+
+
+def moe_row_invariance(cfg, params, n: int = 8, plen: int = 200) -> list[dict]:
+    """A row's first-token logits and every layer's K/V the same bits in an
+    ``n``-prompt admission (equal lengths: MoE admission groups by exact
+    length) and alone, under the engine's fixed-shape prefill; gated under
+    ``matmul="pallas"``, reported under cuBLAS."""
+    from repro_torch.serve.engine import PREFILL_Q_BLOCK
+
+    model = build(cfg)
+    g = torch.Generator(device=DEV).manual_seed(21)
+    toks = torch.randint(0, cfg.vocab, (n, plen), generator=g, device=DEV)
+    last = torch.full((n,), plen - 1, device=DEV)
+    rows = []
+    for matmul in ("pallas", "xla"):
+        d = L.Dispatch(matmul=matmul, q_block=PREFILL_Q_BLOCK)
+        gc = kvcache.build_caches(cfg, n, MAX_LEN, DEV)
+        gl, _ = model.prefill(params, toks, gc, last_index=last, dispatch=d)
+        for j in (0, 5):
+            oc = kvcache.build_caches(cfg, 1, MAX_LEN, DEV)
+            ol, _ = model.prefill(params, toks[j : j + 1], oc, last_index=last[:1], dispatch=d)
+            row = dict(matmul=matmul, row=j, logits_equal=torch.equal(gl[j], ol[0]),
+                       k_equal=torch.equal(gc["k"][:, j], oc["k"][:, 0]),
+                       v_equal=torch.equal(gc["v"][:, j], oc["v"][:, 0]),
+                       logits_max_diff=float((gl[j].float() - ol[0].float()).abs().max()))
+            rows.append(row)
+            print(f"granite-moe prefill row {j} of {n} x {plen} tokens, matmul={matmul}: "
+                  f"alone == in the admission: logits {row['logits_equal']} (max diff "
+                  f"{row['logits_max_diff']:.3e}), K {row['k_equal']}, V {row['v_equal']}",
+                  flush=True)
+            if matmul == "pallas" and not (row["logits_equal"] and row["k_equal"]
+                                           and row["v_equal"]):
+                fail(f"granite-moe: prefill row {j} differs alone and in an {n}-prompt "
+                     f"admission under matmul=pallas")
+        del gc
+    return rows
+
+
+def moe_phase(totals: dict, results: dict) -> dict:
+    """(b): granite-moe-1b-a400m at full depth."""
+    from repro_torch.arch import moe
+
+    cfg = get("granite-moe-1b-a400m")
+    params = zoo_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = cfg.moe
+    print(f"-- (b) serve {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{m.num_experts} experts top-{m.top_k} of d_expert {m.d_expert} (capacity factor "
+          f"{m.capacity_factor}), {cfg.n_heads} heads on {cfg.n_kv_heads} of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab}, {cfg.dtype}, {n_params / 1e9:.3f} B "
+          f"parameters; phase 3's workload", flush=True)
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, MAX_LEN, BS, [0, 1, 17, 100, 255, 300, 777, 1024],
+                 suffix="_granite")
+    reqs = workload(cfg)
+    warm = [dataclasses.replace(r, max_new=4) for r in reqs[:2]]
+    serve_once(cfg, params, "contiguous", "xla", warm)  # warm-up, not kept
+    per_layer = 4  # the attention projections; the experts are batched products
+    gemm = (per_layer * cfg.n_layers, per_layer * cfg.n_layers + 1, 1)
+    contig: dict = {}
+    runs, _ = counted_serve_runs(cfg, params, reqs, {"flash_decode": (0, cfg.n_layers)},
+                                 totals, "granite-moe", gemm=gemm, tokens=contig)
+    spread = {m: varied(f"granite-moe/{m}", t) for m, t in contig.items()}
+    # paged with prefix sharing off gives each request its own prefill's
+    # K/V, as contiguous does; with sharing on a sharer reads the first
+    # prompt's prefix blocks, whose K/V past layer 0 depend on that whole
+    # prompt through the expert capacity (the reference does the same)
+    paged = {}
+    for matmul in ("xla", "pallas"):
+        res, toks, _ = serve_once(cfg, params, "paged", matmul, reqs, prefix_sharing=False)
+        if res["launches"]["flash_decode_paged"] <= 0 or (
+                matmul == "pallas" and res["launches"]["gemm_bf16"] <= 0):
+            fail(f"granite-moe paged/{matmul}: a kernel of the path never launched")
+        if toks != contig[matmul]:
+            fail(f"granite-moe matmul={matmul}: paged tokens (no prefix sharing) differ from "
+                 f"contiguous tokens")
+        print(f"granite-moe matmul={matmul}: paged tokens (no prefix sharing) == contiguous "
+              f"tokens", flush=True)
+        for n, c in res["launches"].items():
+            totals[n] += c
+        runs.append(res)
+        paged[matmul] = toks
+    res, shared, _ = serve_once(cfg, params, "paged", "pallas", reqs)
+    for n, c in res["launches"].items():
+        totals[n] += c
+    runs.append(res)
+    differ = [i for i, (a, b) in enumerate(zip(shared, contig["pallas"])) if a != b]
+    if any(i == 0 or i >= 8 for i in differ):
+        fail(f"granite-moe: with prefix sharing, requests {differ} differ from contiguous; "
+             f"only the prefix's sharers (1-7) may")
+    print(f"granite-moe paged/pallas with prefix sharing: requests {differ} of the 7 that "
+          f"alias request 0's prefix blocks differ from contiguous; the rest are equal",
+          flush=True)
+    rows = moe_row_invariance(cfg, params)
+    step = check_decode_step(cfg, params, SLOTS, MAX_LEN, probe=True)
+    # ABFT: four independent requests of 16 tokens (a request's tokens do
+    # not depend on its batch mates), against the ABFT-off paged run
+    sub = [dataclasses.replace(r, max_new=16) for r in reqs[8:12]]
+    res, toks, _ = serve_once(cfg, params, "paged", "pallas", sub, abft_mode="checksum",
+                              prefix_sharing=False)
+    want = [paged["pallas"][r.request_id][:16] for r in sub]
+    if toks != want or res["sdc_detected"] or res["launches"]["gemm_bf16_abft"] <= 0:
+        fail(f"granite-moe abft=checksum: tokens equal {toks == want}, detections "
+             f"{res['sdc_detected']}, checksum GEMM launches {res['launches']['gemm_bf16_abft']}")
+    print("granite-moe abft=checksum: the ABFT-off tokens, no detection, through the checksum "
+          "GEMM", flush=True)
+    for n, c in res["launches"].items():
+        totals[n] += c
+    runs.append(res)
+    prof = profile_decode(cfg, params, reqs, focus=(DECODE_KERNEL, GEMM_KERNEL),
+                          ranges={"moe_expert_ffn": (moe, "_expert_ffn"),
+                                  "moe_layer": (moe, "moe_apply")})
+    return dict(params=n_params, gemm_per_decode_step=gemm[1], serve=runs, tokens=spread,
+                prefix_sharing_differs=differ, row_invariance=rows, decode_step=step,
+                decode_profile=prof)
+
+
+def grok_phase(totals: dict, results: dict) -> dict:
+    """(c): grok-1-314b at full width, ``ZOO_LAYERS`` of its 64 layers."""
+    from repro_torch.arch import moe
+
+    cfg = cut("grok-1-314b")
+    params = zoo_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = cfg.moe
+    print(f"-- (c) {cfg.name} at {cfg.n_layers} of 64 layers: d_model {cfg.d_model}, "
+          f"{m.num_experts} experts top-{m.top_k} of d_expert {m.d_expert}, {cfg.n_heads} heads "
+          f"on {cfg.n_kv_heads} of {cfg.resolved_head_dim}, {n_params / 1e9:.3f} B parameters "
+          f"({torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card)", flush=True)
+    model = build(cfg)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (SLOTS, ZOO_PREFILL), generator=g, device=DEV)
+    max_len = ZOO_PREFILL + ZOO_STEPS + 16
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, max_len, attn_ops._pick_decode_bk(max_len),
+                 [1, 17, 48, 64, 65, 80, 90, max_len], suffix="_grok")
+    step = check_decode_step(cfg, params, SLOTS, max_len, probe=True)
+    ck, cp = (kvcache.build_caches(cfg, SLOTS, max_len, DEV) for _ in "kp")
+    routing = SharedRouting(cfg)
+    with routing.record():
+        lp, cp = model.prefill(params, toks, cp)
+    with routing.replay():
+        lk, ck = model.prefill(params, toks, ck, dispatch=KERNEL_PATH)
+    out = lockstep("grok-1-314b", model, params, ck, cp, lk, lp, ZOO_STEPS, cfg.n_layers,
+                   totals)
+    # one MoE layer at the decode shape (8 rows, one token each) against
+    # the bytes it must read: every expert's three matrices and the router
+    p0 = _index(params["layers"]["moe"], 0)
+    x = torch.randn((SLOTS, 1, cfg.d_model), generator=g, device=DEV).to(torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in p0.values()) + 2 * x.numel() * 2
+    ms = time_ms(lambda: moe.moe_apply(p0, cfg, x), iters=10)
+    b_ms, b_by = bound_ms(nbytes, 2 * 3 * SLOTS * m.top_k * cfg.d_model * m.d_expert)
+    print(f"grok-1-314b MoE layer at decode (8 x 1 tokens): {ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}: {nbytes / 1e9:.2f} GB); {b_ms / ms:.2f} of the bound", flush=True)
+    return dict(layers=cfg.n_layers, params=n_params, lockstep=out, decode_step=step,
+                moe_layer_decode=dict(ms=ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+
+
+def whisper_phase(totals: dict, results: dict) -> dict:
+    """(d): whisper-medium at full depth through ``EncDecModel``."""
+    cfg = get("whisper-medium")
+    model = build(cfg)
+    params = zoo_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"-- (d) {cfg.name}: {cfg.encoder_layers} encoder and {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.encoder_seq} frames, {n_params / 1e9:.3f} B parameters; {SLOTS} rows, "
+          f"{WHISPER_PROMPT}-token prompts, {WHISPER_STEPS} greedy steps at max_len "
+          f"{WHISPER_MAX_LEN}", flush=True)
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, WHISPER_MAX_LEN, attn_ops._pick_decode_bk(WHISPER_MAX_LEN),
+                 [1, 5, 17, 64, 68, 100, 300, WHISPER_MAX_LEN], suffix="_whisper")
+    g = torch.Generator(device=DEV).manual_seed(6)
+    frames = torch.randn((SLOTS, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=DEV).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (SLOTS, WHISPER_PROMPT), generator=g, device=DEV)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    lk, sk = model.prefill(params, frames, toks, model.init_caches(SLOTS, WHISPER_MAX_LEN, DEV),
+                           dispatch=KERNEL_PATH)
+    torch.cuda.synchronize()
+    pre_launches = {n: w.launches for n, w in WRAPPERS.items()}
+    _, ops = on_operands("whisper prefill", lambda: model.prefill(
+        params, frames, toks, model.init_caches(SLOTS, WHISPER_MAX_LEN, DEV),
+        dispatch=KERNEL_PATH))
+    lp, sp = model.prefill(params, frames, toks, model.init_caches(SLOTS, WHISPER_MAX_LEN, DEV))
+    errs = [logit_gate("whisper prefill", lk, lp)]
+    tok = lk.argmax(-1)[:, None]
+    lp, _ = model.decode_step(params, tok, sp)
+    del sp
+    probe_state = (kvcache._tree_map(torch.clone, sk[0]), sk[1])
+    tokens, per_step = [tok[:, 0].tolist()], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(WHISPER_STEPS):
+        for w in WRAPPERS.values():
+            w.launches = 0
+        lk, sk = model.decode_step(params, tok, sk, dispatch=KERNEL_PATH)
+        torch.cuda.synchronize()
+        per_step.append({n: w.launches for n, w in WRAPPERS.items()})
+        if i == 0:
+            errs.append(logit_gate("whisper step 0", lk, lp))
+            _, step_ops = on_operands("whisper step 0", lambda: model.decode_step(
+                params, tok, (kvcache._tree_map(torch.clone, probe_state[0]), sk[1]),
+                dispatch=KERNEL_PATH))
+            probe = zeroed_layer0("whisper step 0", lambda: model.decode_step(
+                params, tok, probe_state, dispatch=KERNEL_PATH)[0], lp)
+            del probe_state
+        tok = lk.argmax(-1)[:, None]
+        tokens.append(tok[:, 0].tolist())
+    wall = time.perf_counter() - t0
+    bad = [i for i, c in enumerate(per_step) if c["flash_decode"] != cfg.n_layers]
+    if bad or not all(c["gemm_bf16"] > 0 for c in per_step):
+        fail(f"whisper: decode attention launched {per_step[bad[0]]['flash_decode'] if bad else '-'}"
+             f" times at step {bad[:1]}, want {cfg.n_layers} a step; or the GEMM never launched")
+    for c in [pre_launches] + per_step:
+        for n in c:
+            totals[n] += c[n]
+    rows = [list(r) for r in zip(*tokens)]
+    spread = varied("whisper", rows)
+    rel = ", ".join(f"{100 * e['max_abs_err'] / e['scale']:.2f}%" for e in errs)
+    print(f"whisper: kernels vs plain {rel} of the logit scale (prefill, step 0); decode "
+          f"attention {cfg.n_layers} launches and "
+          f"the GEMM {per_step[0]['gemm_bf16']} a step; {WHISPER_STEPS} steps in {wall:.2f} s; "
+          f"layer 0's decode attention zeroed moves step 0's logits {100 * probe:.1f}% of the "
+          f"scale; {spread['distinct']} distinct of {spread['tokens']} tokens; row 0's tokens "
+          f"{rows[0]}", flush=True)
+    return dict(params=n_params, errors=errs, tokens=rows, spread=spread, decode_s=wall,
+                probe_rel=probe, operands=ops + step_ops,
+                launches_per_step=per_step[0], prefill_launches=pre_launches)
+
+
+def llava_phase(totals: dict, results: dict) -> dict:
+    """(e): llava-next-34b at full width, ``ZOO_LAYERS`` of its 60 layers."""
+    cfg = cut("llava-next-34b")
+    model = build(cfg)
+    params = zoo_params(cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"-- (e) {cfg.name} at {cfg.n_layers} of 60 layers: d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads on {cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_patches} patches of {cfg.patch_dim}, {n_params / 1e9:.3f} B parameters",
+          flush=True)
+    g = torch.Generator(device=DEV).manual_seed(7)
+    patches = torch.randn((SLOTS, cfg.n_patches, cfg.patch_dim), generator=g,
+                          device=DEV).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (SLOTS, ZOO_PREFILL), generator=g, device=DEV)
+    max_len = cfg.n_patches + ZOO_PREFILL + ZOO_STEPS + 16
+    check_decode(results, SLOTS, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                 cfg.resolved_head_dim, max_len, attn_ops._pick_decode_bk(max_len),
+                 [1, 17, 64, 577, 640, 650, 656, max_len], suffix="_llava")
+    step = check_decode_step(cfg, params, SLOTS, max_len, probe=True)
+    ck, cp = (kvcache.build_caches(cfg, SLOTS, max_len, DEV) for _ in "kp")
+    (lk, ck), ops = on_operands("llava prefill", lambda: model.prefill(
+        params, toks, ck, dispatch=KERNEL_PATH, patches=patches))
+    lp, cp = model.prefill(params, toks, cp, patches=patches)
+    if int(ck["len"][0, 0]) != cfg.n_patches + ZOO_PREFILL:
+        fail(f"llava: the caches hold {int(ck['len'][0, 0])} positions after the prefill, want "
+             f"{cfg.n_patches + ZOO_PREFILL}")
+    out = lockstep("llava-next-34b", model, params, ck, cp, lk, lp, ZOO_STEPS, cfg.n_layers,
+                   totals)
+    del ck, cp
+    # text-only requests through the engine (no patches, as the reference's
+    # engine); contiguous: the reference refuses the paged layout for VLMs
+    if kvcache.supports_paged(cfg):
+        fail("llava: the paged layout is admitted for a VLM, unlike the reference")
+    reqs = workload(cfg)[8:]
+    served: dict = {}
+    runs, _ = counted_serve_runs(cfg, params, reqs, {"flash_decode": (0, cfg.n_layers)},
+                                 totals, "llava", tokens=served)
+    spread = {m: varied(f"llava/{m}", t) for m, t in served.items()}
+    return dict(layers=cfg.n_layers, params=n_params, lockstep=out, decode_step=step,
+                prefill_operands=ops, serve=runs, tokens=spread)
+
+
+def zoo_phase(totals: dict, results: dict) -> dict:
+    """Phase 12 of the module docstring; each model's weights are freed
+    before the next is drawn."""
+    out = {}
+    for key, fn in (("gemma3", lambda: gemma_phase(totals, results)),
+                    ("granite_moe", lambda: moe_phase(totals, results)),
+                    ("grok", lambda: grok_phase(totals, results)),
+                    ("whisper", lambda: whisper_phase(totals, results)),
+                    ("llava", lambda: llava_phase(totals, results))):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        out[key] = fn()
+        out[key]["seconds"] = time.perf_counter() - t0
+        out[key]["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"-- {key}: {out[key]['seconds']:.1f} s, peak {out[key]['peak_mem_gib']:.1f} GiB",
+              flush=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------- flash-attention phase --
@@ -2685,20 +3240,181 @@ def _leaves(tree):
         yield tree
 
 
-def check_decode_step(cfg, params) -> float:
+_OPERAND_HOOKS = {"gemm": (mmops, "matmul_cuda"), "decode": (attn_ops, "flash_decode_cuda"),
+                  "paged": (attn_ops, "flash_decode_paged_cuda")}
+_OPERAND_PLAIN = {"gemm": (mm.matmul_cuda, mm.matmul_plain),
+                  "decode": (dec.flash_decode_cuda, dec.decode_attention_plain),
+                  "paged": (dec.flash_decode_paged_cuda, dec.decode_attention_paged_plain)}
+
+
+def on_operands(tag: str, run):
+    """``run()`` with its GEMM and decode-attention launches recorded (the
+    first call of each distinct shape; inputs copied before the launch, but
+    the GEMM's weight, which nothing writes), then each recorded call run
+    again through the kernel and its plain version: decode attention
+    bitwise, the GEMM within one bf16 ulp of the output's scale (both
+    accumulate in fp32, in other orders).  Returns ``run()``'s result and
+    the readings."""
+    seen = {}
+
+    def recorder(kind, real):
+        def call(*args, **kw):
+            key = (kind, tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args),
+                   tuple(sorted(kw.items())))
+            if key not in seen:
+                seen[key] = (kind, [a.clone() if torch.is_tensor(a) and not (kind == "gemm"
+                                                                            and i > 0)
+                                    else a for i, a in enumerate(args)], kw)
+            return real(*args, **kw)
+        return call
+
+    for kind, (mod, name) in _OPERAND_HOOKS.items():
+        setattr(mod, name, recorder(kind, _OPERAND_PLAIN[kind][0]))
+    try:
+        out = run()
+    finally:
+        for kind, (mod, name) in _OPERAND_HOOKS.items():
+            setattr(mod, name, _OPERAND_PLAIN[kind][0])
+    rows = []
+    for kind, args, kw in seen.values():
+        kern, plain = _OPERAND_PLAIN[kind]
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if kind == "gemm":
+            tol = (2.0**-7 if args[0].dtype == torch.bfloat16 else 1e-5) * float(
+                want.float().abs().max())
+            ok = err <= tol
+        else:
+            tol, ok = "bitwise", torch.equal(got, want)
+        shapes = " ".join("x".join(map(str, a.shape)) for a in args if torch.is_tensor(a))
+        if not ok or not torch.isfinite(got).all():
+            fail(f"{tag}: {kind} kernel differs from its plain version on the model's operands "
+                 f"({shapes} {kw}): max |diff| {err:.3e}, tolerance {tol}")
+        rows.append(dict(kind=kind, shapes=shapes, kw=kw, max_abs_err=err, tolerance=tol))
+    n = {k: sum(r["kind"] == k for r in rows) for k in _OPERAND_HOOKS}
+    print(f"{tag}: on the model's operands, {n['gemm']} GEMM shapes within one bf16 ulp "
+          f"({', '.join(r['shapes'] for r in rows if r['kind'] == 'gemm')}), "
+          f"{n['decode'] + n['paged']} decode-attention shapes bitwise "
+          f"({', '.join(r['shapes'].split()[1] for r in rows if r['kind'] != 'gemm')})",
+          flush=True)
+    if not rows:
+        fail(f"{tag}: no GEMM or decode-attention call to record")
+    return out, rows
+
+
+class SharedRouting:
+    """``moe.route``'s outputs recorded call by call on the plain path and
+    replayed on the kernel path, for a model with MoE blocks (for any other
+    both are no-ops).  The router is a plain fp32 product on both paths and
+    no kernel of the port; at the zoo's gain its softmax is nearly one-hot,
+    so a near-tie between two experts turns a bf16 rounding difference
+    upstream into a different mix of experts.  Shared routing leaves the
+    kernels' own differences to the logit gate."""
+
+    def __init__(self, cfg):
+        self.on, self.saved = cfg.moe is not None, []
+
+    @contextlib.contextmanager
+    def _swap(self, fn):
+        from repro_torch.arch import moe
+
+        real, moe.route = moe.route, fn(moe.route)
+        try:
+            yield
+        finally:
+            moe.route = real
+
+    @contextlib.contextmanager
+    def record(self):
+        if not self.on:
+            yield
+            return
+        self.saved = []
+
+        def wrap(real):
+            def rec(*a, **kw):
+                self.saved.append(real(*a, **kw))
+                return self.saved[-1]
+            return rec
+
+        with self._swap(wrap):
+            yield
+
+    @contextlib.contextmanager
+    def replay(self):
+        if not self.on:
+            yield
+            return
+        left = list(self.saved)
+
+        def wrap(real):
+            def rep(params, cfg, x):
+                if not left or left[0][2].shape[:2] != x.shape[:2]:
+                    fail("shared routing: the kernel path routes other tokens than the plain "
+                         "path recorded")
+                return left.pop(0)
+            return rep
+
+        with self._swap(wrap):
+            yield
+        if left:
+            fail(f"shared routing: {len(left)} recorded routings were not replayed")
+
+
+def zeroed_layer0(tag: str, kernel_step, want: torch.Tensor) -> float:
+    """``kernel_step()`` (a decode step through the kernels, on a copy of
+    the state) with layer 0's decode attention returning zeros: its logits
+    must miss the plain path's ``want`` by more than 5% of their scale, or
+    the 5% gate could not see a wrong layer.  Returns the miss over the
+    scale."""
+    real, first = attn_ops.flash_decode_cuda, []
+
+    def wrong(*a, **kw):
+        o = real(*a, **kw)
+        if not first:
+            first.append(1)
+            o = torch.zeros_like(o)
+        return o
+
+    attn_ops.flash_decode_cuda = wrong
+    try:
+        bad = kernel_step()
+    finally:
+        attn_ops.flash_decode_cuda = real
+    rel = float((bad.float() - want.float()).abs().max() / want.float().abs().max())
+    if not first or rel <= 0.05:
+        fail(f"{tag}: with layer 0's decode attention returning zeros the logits move "
+             f"{100 * rel:.2f}% of their scale, within the 5% gate")
+    return rel
+
+
+def check_decode_step(cfg, params, rows: int = 2, max_len: int = 64,
+                      probe: bool = False) -> dict:
     """One full-width decode step through the kernels against the plain
-    path (torch.matmul + the masked dense attention) on the same caches.
-    The linear scan has no plain route on the card: both paths run its
-    kernel, which (d) of phase 7 holds bitwise to its plain version."""
+    path (torch.matmul + the masked dense attention) on the same caches,
+    after a 48-token prefill of ``rows`` rows at ``max_len``; the step's
+    GEMM and decode-attention calls are held to their plain versions on
+    their operands (:func:`on_operands`).  The linear scan has no plain
+    route on the card: both paths run its kernel, which (d) of phase 7
+    holds bitwise to its plain version.  With ``probe``, the same step with
+    layer 0's decode attention returning zeros must miss the plain logits
+    by more than the gate allows, or the gate could not see a wrong layer.
+    MoE blocks route as the plain path did (:class:`SharedRouting`); the
+    gap with each path routing alone is reported beside."""
     model = build(cfg)
     g = torch.Generator(device=DEV).manual_seed(3)
-    toks = torch.randint(0, cfg.vocab, (2, 48), generator=g, device=DEV)
-    caches = kvcache.build_caches(cfg, 2, 64, DEV)
+    toks = torch.randint(0, cfg.vocab, (rows, 48), generator=g, device=DEV)
+    caches = kvcache.build_caches(cfg, rows, max_len, DEV)
     model.prefill(params, toks, caches)
-    step = torch.randint(0, cfg.vocab, (2, 1), generator=g, device=DEV)
-    want, _ = model.decode_step(params, step, kvcache._tree_map(torch.clone, caches))
-    got, _ = model.decode_step(params, step, caches,
-                               dispatch=L.Dispatch(matmul="pallas", attention="flash"))
+    step = torch.randint(0, cfg.vocab, (rows, 1), generator=g, device=DEV)
+    routing = SharedRouting(cfg)
+    copies = [kvcache._tree_map(torch.clone, caches) for _ in range(probe + 2 * routing.on)]
+    with routing.record():
+        want, _ = model.decode_step(params, step, kvcache._tree_map(torch.clone, caches))
+    with routing.replay():
+        (got, _), ops = on_operands(f"decode step ({cfg.name})", lambda: model.decode_step(
+            params, step, caches, dispatch=KERNEL_PATH))
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     # all bf16 layers on both sides, rounded in other places: a few percent
@@ -2706,13 +3422,33 @@ def check_decode_step(cfg, params) -> float:
     if not torch.isfinite(got).all() or err > 0.05 * scale:
         fail(f"full-width {cfg.name} decode step: kernel path vs plain path max err "
              f"{err:.3e} > 5% of the logit scale {scale:.3e}")
-    print(f"decode step ({cfg.name}, kernels vs plain, full width): max |diff| {err:.3e}, "
-          f"logit scale {scale:.3e}", flush=True)
-    return err
+    out = dict(max_abs_err=err, scale=scale, operands=ops)
+    if probe:
+        with routing.replay():
+            out["probe_rel"] = zeroed_layer0(f"full-width {cfg.name} decode step", lambda: (
+                model.decode_step(params, step, copies.pop(), dispatch=KERNEL_PATH)[0]), want)
+    if routing.on:
+        # each path routing on its own inputs: reported, not gated
+        free_p, _ = model.decode_step(params, step, copies.pop())
+        free_k, _ = model.decode_step(params, step, copies.pop(), dispatch=KERNEL_PATH)
+        out["free_routing_rel"] = float((free_k.float() - free_p.float()).abs().max()
+                                        / free_p.float().abs().max())
+    print(f"decode step ({cfg.name}, kernels vs plain, full width, {rows} rows, max_len "
+          f"{max_len}{', routing shared' if routing.on else ''}): max |diff| {err:.3e}, "
+          f"logit scale {scale:.3e}"
+          + (f"; layer 0's decode attention zeroed moves the logits "
+             f"{100 * out['probe_rel']:.1f}% of the scale" if probe else "")
+          + (f"; each path routing alone: {100 * out['free_routing_rel']:.2f}% of the scale"
+             if routing.on else ""), flush=True)
+    return out
 
 
 def main() -> None:
     t_start = time.perf_counter()
+
+    def banner(title: str) -> None:
+        print(f"[{time.perf_counter() - t_start:.1f} s] == {title}", flush=True)
+
     print("== build", flush=True)
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -2729,7 +3465,7 @@ def main() -> None:
     results: dict = {}
     if sys.argv[1:] == ["--conv"]:
         # the CONV pass alone: phase 5
-        print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
+        banner("conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)")
         convs = conv_phase({n: 0 for n in WRAPPERS}, results)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
@@ -2743,7 +3479,7 @@ def main() -> None:
             base = recur_baselines(sys.argv[3])
         elif len(sys.argv) != 2:
             fail("usage: chip_smoke.py --recur [--baseline DIR]")
-        print("== WKV-6 at rwkv6-1.6b's shapes, the scan at recurrentgemma-2b's", flush=True)
+        banner("WKV-6 at rwkv6-1.6b's shapes, the scan at recurrentgemma-2b's")
         check_wkv6(results, base)
         check_linear_scan(results, get("recurrentgemma-2b").rnn_width, base)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
@@ -2752,7 +3488,7 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--flash"]:
         # flash attention alone: phase 8 (a, b)
-        print("== flash attention at full width", flush=True)
+        banner("flash attention at full width")
         totals = {n: 0 for n in WRAPPERS}
         flash_phase(totals, results)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
@@ -2769,18 +3505,29 @@ def main() -> None:
             base = baseline_library(sys.argv[3])
         elif len(sys.argv) != 2:
             fail("usage: chip_smoke.py --gemm [--baseline FILE]")
-        print("== the GEMM and the checksum GEMM at smollm-360m's shapes", flush=True)
+        banner("the GEMM and the checksum GEMM at smollm-360m's shapes")
         check_gemm(results, prefill_m, base)
         check_gemm_abft(results, prefill_m, base)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"gemm": {k: results[k] for k in ("gemm_bf16", "gemm_bf16_abft")}}))
         return
+    if sys.argv[1:] == ["--zoo"]:
+        # the rest of the model zoo alone: phase 12
+        banner("the rest of the model zoo at full width")
+        totals = {n: 0 for n in WRAPPERS}
+        zoo = zoo_phase(totals, results)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"zoo": zoo, "launches": totals,
+                          "decode_d240_global": {k: v for k, v in results.items()
+                                                 if k.endswith("_d240_global")}}))
+        return
     sched_only = sys.argv[1:] == ["--sched"]
     recover_only = sys.argv[1:] == ["--recover"]
     only = sched_only or recover_only
     if not only:
-        print("== kernels against their plain versions", flush=True)
+        banner("kernels against their plain versions")
         check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
                      [0, 1, 17, 100, 255, 300, 777, 1024])
     if sys.argv[1:] == ["--decode"]:
@@ -2796,7 +3543,7 @@ def main() -> None:
         check_gemm(results, prefill_m=prefill_m)
         check_gemm_abft(results, prefill_m=prefill_m)
 
-    print("== serve smollm-360m (full width, random weights)", flush=True)
+    banner("serve smollm-360m (full width, random weights)")
     params = build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
     reqs = workload(cfg)
     serve_once(cfg, params, "contiguous", "xla", reqs[:2])  # warm-up, not kept
@@ -2825,48 +3572,51 @@ def main() -> None:
             print(f"matmul={matmul}: paged tokens == contiguous tokens", flush=True)
     mono = {(r["layout"], r["matmul"]): r for r in runs}
     if sched_only:
-        print("== scheduling at full width", flush=True)
+        banner("scheduling at full width")
         sched = sched_phase(cfg, params, reqs, tokens, mono, totals, card)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"sched": sched, "launches": totals}))
         return
     if recover_only:
-        print("== crash recovery at full width", flush=True)
+        banner("crash recovery at full width")
         recover = recover_phase(cfg, params, reqs, tokens, totals, card)
         print(f"done in {time.perf_counter() - t_start:.1f} s")
         print(card)
         print(json.dumps({"recover": recover, "launches": totals}))
         return
 
-    print("== where a decode step's time goes", flush=True)
+    banner("where a decode step's time goes")
     prof = profile_decode(cfg, params, reqs, focus=(GEMM_KERNEL,))
 
-    print("== SDC defense (abft), full width, paged KV", flush=True)
+    banner("SDC defense (abft), full width, paged KV")
     sdc = sdc_phase(cfg, params, reqs, runs[-1], tokens[("paged", "pallas")], totals)
 
-    print("== scheduling at full width", flush=True)
+    banner("scheduling at full width")
     sched = sched_phase(cfg, params, reqs, tokens, mono, totals, card)
 
-    print("== crash recovery at full width", flush=True)
+    banner("crash recovery at full width")
     recover = recover_phase(cfg, params, reqs, tokens, totals, card)
 
-    print("== conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)", flush=True)
+    banner("conv2d on the paper's CNNs (AlexNet, VGG-16, GoogLeNet, batch 16)")
     convs = conv_phase(totals, results)
 
-    print("== rwkv6-1.6b (full width, random weights) through the WKV-6 kernel", flush=True)
+    banner("rwkv6-1.6b (full width, random weights) through the WKV-6 kernel")
     rwkv = rwkv_phase(totals, results)
 
-    print("== recurrentgemma-2b (full width, random weights) through the linear-scan and "
-          "decode-attention kernels", flush=True)
+    banner("recurrentgemma-2b (full width, random weights) through the linear-scan and "
+           "decode-attention kernels")
     rgemma = rg_phase(totals, results)
 
-    print("== flash attention at full width, and the kernels widened to every dtype and "
-          "head size their Pallas kernels take", flush=True)
+    banner("the rest of the model zoo at full width")
+    zoo = zoo_phase(totals, results)
+
+    banner("flash attention at full width, and the kernels widened to every dtype and "
+           "head size their Pallas kernels take")
     flash_phase(totals, results)
     check_widened(results)
 
-    print("== reference check", flush=True)
+    banner("reference check")
     check_decode_step(cfg, params)
 
     # every reading of this run, in full, beside the built kernels
@@ -2876,7 +3626,7 @@ def main() -> None:
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
              serve=runs, decode_profile=prof, sdc=sdc, sched=sched, recover=recover, conv=convs,
              rwkv=rwkv,
-             recurrentgemma=rgemma,
+             recurrentgemma=rgemma, zoo=zoo,
              seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [

@@ -129,6 +129,14 @@ def _mm(
 
 
 def _normal(shape, std, dtype, generator, device) -> torch.Tensor:
+    """Normal(0, std) in ``dtype``, drawn in fp32 one matrix at a time: a
+    stack of matrices (layers, experts) never needs an fp32 copy of the
+    whole stack (one grok-1 layer's experts are 1.6 G elements)."""
+    if len(shape) > 2:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = _normal(shape[1:], std, dtype, generator, device)
+        return out
     out = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     return (out * std).to(dtype)
 

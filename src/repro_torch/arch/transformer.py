@@ -1,5 +1,6 @@
-"""Decoder-only LM: the dense, RWKV-6 and hybrid (recurrentgemma) paths;
-port of ``repro/arch/transformer.py``.
+"""Decoder-only LM: the dense (and VLM), MoE, local:global (gemma3),
+RWKV-6 and hybrid (recurrentgemma) paths; port of
+``repro/arch/transformer.py``.
 
 One :class:`Model` per config exposing
 
@@ -14,20 +15,26 @@ Parameters keep the reference's layer-stacked layout (every leaf under
 under ``rnn`` and ``(n_groups,)`` under ``attn``, ``params["tail"]``'s with
 the remainder's rnn layers); the reference's ``lax.scan`` over those axes
 becomes a Python loop that indexes one layer's weights and cache views at
-a time.  Caches are updated in place.
+a time.  Caches are updated in place.  MoE blocks hold ``moe`` (router and
+stacked experts, ``arch/moe.py``) where dense blocks hold ``mlp``; the VLM
+family adds ``patch_proj``, which ``prefill(patches=...)`` applies.  With
+caches, gemma3's layers run in groups of ``global_every - 1`` local layers
+and one global layer over window-sized rings (``_backbone_local_global``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
 
 from repro_torch.arch import layers as L
+from repro_torch.arch import moe as M
 from repro_torch.arch import rglru as G
 from repro_torch.arch import rwkv as R
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import Family, Mixer, ModelConfig
 
 GLOBAL_WINDOW = 2**30  # "window" that never masks = global attention
 
@@ -48,16 +55,14 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
 
 
 def unsupported_reason(cfg: ModelConfig) -> str | None:
-    """Why the port cannot run ``cfg`` yet (the ROADMAP item that adds
-    it), or None for the dense, RWKV-6 and hybrid paths it does run."""
-    if cfg.family == "encdec":
-        return "encoder-decoder models are ROADMAP A10c (arch/encdec.py)"
-    if cfg.family == "vlm":
-        return "the VLM patch projection is ROADMAP A10c"
-    if cfg.moe is not None or cfg.family == "moe":
-        return "MoE FFNs are ROADMAP A10c (arch/moe.py)"
-    if cfg.global_every:
-        return "the local:global backbone (gemma3) is ROADMAP A3b"
+    """Why the port cannot run ``cfg``, or None.  Every family and mixer
+    of ``configs/base.py`` runs (encdec as ``arch/encdec.py``'s
+    ``EncDecModel``, the rest as :class:`Model`), so only a config outside
+    them has a reason."""
+    if cfg.family not in typing.get_args(Family):
+        return f"unknown model family {cfg.family!r}"
+    if cfg.mixer not in typing.get_args(Mixer):
+        return f"unknown sequence mixer {cfg.mixer!r}"
     return None
 
 
@@ -79,6 +84,11 @@ def attn_block_apply(
     )
     x = x + h
     z = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        # the aux loss is for training; prefill and decode drop it, as the
+        # reference's do
+        f, _ = M.moe_apply(p["moe"], cfg, z, dispatch)
+        return x + f
     return x + L.mlp(p["mlp"], cfg, z, dispatch)
 
 
@@ -113,6 +123,8 @@ class Model:
 
     def __post_init__(self):
         why = unsupported_reason(self.cfg)
+        if why is None and self.cfg.family == "encdec":
+            why = "the encoder-decoder family is arch/encdec.py's EncDecModel (model_zoo.build)"
         if why is not None:
             raise NotImplementedError(f"{self.cfg.name}: {why}")
 
@@ -122,8 +134,10 @@ class Model:
         0.02 embeddings, normal 0.02/sqrt(d) projections, unit norm
         scales; for RWKV-6 also ``mu`` 0.5, ``w0`` -3, a zero ``w_lora_b``
         and ``u`` normal 0.5 in fp32; for the RG-LRU an fp32 ``lam`` and a
-        normal 0.02 conv kernel), drawn from ``generator``, which must live
-        on ``device``.
+        normal 0.02 conv kernel; for MoE an fp32 normal 0.02 router and
+        normal 0.02/sqrt(d) experts; for the VLM family a normal 0.02
+        ``patch_proj``), drawn from ``generator``, which must live on
+        ``device``.
         The draws differ from ``jax.random``'s; tests that compare the two
         packages convert one tree with ``repro_torch.bridge``."""
         cfg = self.cfg
@@ -131,11 +145,13 @@ class Model:
         def blocks(kind: str, lead: tuple) -> dict:
             mixer = {"wkv": R.rwkv_init, "rnn": G.rglru_init,
                      "attn": L.attention_init}[kind]
+            ffn, ffn_init = ("moe", M.moe_init) if kind == "attn" and cfg.moe \
+                else ("mlp", L.mlp_init)
             return {
                 "ln1": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
                 kind: mixer(generator, cfg, device, lead),
                 "ln2": {"scale": torch.ones(lead + (cfg.d_model,), device=device)},
-                "mlp": L.mlp_init(generator, cfg, device, lead),
+                ffn: ffn_init(generator, cfg, device, lead),
             }
 
         if cfg.family == "hybrid":
@@ -150,11 +166,16 @@ class Model:
         else:
             body = {"layers": blocks("wkv" if cfg.mixer == "rwkv6" else "attn",
                                      (cfg.n_layers,))}
-        return {
+        params = {
             "embed": L.embedding_init(generator, cfg, device),
             **body,
             "final_ln": L.rmsnorm_init(cfg.d_model, device),
         }
+        if cfg.family == "vlm" and cfg.n_patches:
+            params["patch_proj"] = L._normal(
+                (cfg.patch_dim, cfg.d_model), 0.02, L.dtype_of(cfg), generator, device
+            )
+        return params
 
     # ------------------------------------------------------------ forward --
     def _backbone(
@@ -168,6 +189,8 @@ class Model:
         cfg = self.cfg
         if cfg.family == "hybrid":
             return self._backbone_hybrid(params, x, positions, caches, dispatch)
+        if cfg.global_every and caches is not None:
+            return self._backbone_local_global(params, x, positions, caches, dispatch)
         if cfg.mixer == "rwkv6":
             for i in range(cfg.n_layers):
                 x = rwkv_block_apply(
@@ -208,6 +231,31 @@ class Model:
         if trace is not None:
             trace.layer = None
             trace.flags.append(torch.stack(layer_flags).any())
+        return x
+
+    def _backbone_local_global(self, params, x, positions, caches, dispatch):
+        """gemma3 with caches: each group is ``global_every - 1`` local
+        layers at the sliding window, on window-sized rings, then one
+        global layer on a ``max_len`` cache; a tail of local layers
+        follows.  The parameters stay layer-stacked: layer ``g *
+        global_every + j`` is local ring ``j`` of group ``g``."""
+        cfg = self.cfg
+        ge = cfg.global_every
+        ng = cfg.n_layers // ge
+
+        def layer(x, i, window, cache):
+            return attn_block_apply(
+                _index(params["layers"], i), cfg, x, window=window,
+                positions=positions, cache=cache, dispatch=dispatch,
+            )
+
+        for gi in range(ng):
+            c = _index(caches["groups"], gi)
+            for j in range(ge - 1):
+                x = layer(x, gi * ge + j, cfg.sliding_window, _index(c["local"], j))
+            x = layer(x, gi * ge + ge - 1, None, c["global"])
+        for t in range(cfg.n_layers - ng * ge):
+            x = layer(x, ng * ge + t, cfg.sliding_window, _index(caches["tail"], t))
         return x
 
     def _backbone_hybrid(self, params, x, positions, caches, dispatch):
@@ -261,6 +309,7 @@ class Model:
         last_index: torch.Tensor | None = None,
         dispatch: L.Dispatch = L.PLAIN,
         from_cursor: bool = False,
+        patches: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, dict]:
         """last_index: per-row index of the last real token, for prompts
         right-padded to a bucket length (default: the final position).
@@ -273,8 +322,17 @@ class Model:
         prompt; the final norm and the unembedding are row-wise, so this
         selects first and unembeds only the rows it returns.  With
         ``dispatch.q_block`` set it normalizes and unembeds each row alone,
-        so the row's bits do not depend on how many prompts the call holds."""
+        so the row's bits do not depend on how many prompts the call holds.
+
+        ``patches`` (VLM only): ``(B, n_patches, patch_dim)`` image patch
+        features, projected by ``patch_proj`` and put before the tokens;
+        positions and ``last_index`` then count patches and tokens.  They
+        are cast to the model's dtype (the reference would promote fp32
+        patches and run the whole model in fp32)."""
         x = L.embed(params["embed"], tokens)
+        if self.cfg.family == "vlm" and patches is not None:
+            w = params["patch_proj"]
+            x = torch.cat([patches.to(w.dtype) @ w, x], dim=1)
         positions = None
         if not from_cursor:
             positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)

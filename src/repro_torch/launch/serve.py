@@ -5,6 +5,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --max-len 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+
+``--arch`` takes every name of ``configs/registry.py`` (and its
+``-smoke`` variant).  The engine serves decoder-only models, so
+whisper-medium is refused with a usage error; llava-next-34b serves as a
+text LM (no image patches), as in the reference.
 
 Generates a mixed-length synthetic workload with random weights, streams
 tokens through the engine, and reports throughput plus per-token latency.
@@ -27,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.arch.model_zoo import build
-from repro_torch.configs.registry import get
+from repro_torch.configs.registry import ARCHS, get
 from repro_torch.serve import recovery
 from repro_torch.serve.engine import (
     DurabilityConfig,
@@ -72,7 +79,8 @@ def latency_summary(stamps: dict[int, list[float]]) -> tuple[float, float]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m-smoke")
+    ap.add_argument("--arch", default="smollm-360m-smoke",
+                    choices=sorted(ARCHS) + sorted(f"{a}-smoke" for a in ARCHS))
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
@@ -150,8 +158,11 @@ def main(argv=None):
     if args.token_budget is not None and not args.prefill_chunk:
         ap.error("--token-budget requires --prefill-chunk")
 
-    device = resolve_device(args.device)
     cfg = get(args.arch)
+    if cfg.family == "encdec":
+        ap.error("continuous batching serves decoder-only LMs; whisper-style "
+                 "encdec requests need per-request encoder state")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = build(cfg).init(gen, device)
     scfg = ServeConfig(

@@ -491,8 +491,8 @@ class Engine:
     ):
         if cfg.family == "encdec":
             raise ValueError(
-                "continuous batching serves decoder-only LMs; encdec requests "
-                "need per-request encoder state"
+                "continuous batching serves decoder-only LMs; whisper-style "
+                "encdec requests need per-request encoder state"
             )
         self.device = resolve_device(device)
         self.cfg = cfg

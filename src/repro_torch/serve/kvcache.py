@@ -1,12 +1,14 @@
 """Slot-based batched KV cache for the continuous-batching engine; port of
-``repro/serve/kvcache.py`` (dense, RWKV-6 and hybrid paths plus the paged
-layout).
+``repro/serve/kvcache.py`` (every decoder family, plus the paged layout).
 
 Contiguous layout: one ``(slots, max_len)`` KV ring per layer, stacked
-over layers; for RWKV-6 one recurrent state ``(slots, H, 64, 64)`` fp32
-and one token-shift row ``(slots, D)`` per layer; for the hybrid family a
-nested tree of window-sized KV rings and RG-LRU states (``h`` and the conv
-history), which the slot helpers walk leaf by leaf.  Paged layout:
+over layers (dense, MoE and VLM models); for RWKV-6 one recurrent state
+``(slots, H, 64, 64)`` fp32 and one token-shift row ``(slots, D)`` per
+layer; for the hybrid family a nested tree of window-sized KV rings and
+RG-LRU states (``h`` and the conv history); for gemma3's local:global
+pattern groups of window-sized local rings and a ``max_len`` global
+cache, plus a tail of local rings.  The slot helpers walk the nested
+trees leaf by leaf.  Paged layout:
 per-layer block pools ``(num_blocks, block_size, KV, hd)``, per-row block
 tables and lengths, with ownership (refcounts, free list, radix prefix
 index) kept host-side in :class:`BlockPool`.
@@ -49,7 +51,11 @@ def build_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dic
     the hybrid family ``{"groups": {"rnn": ..., "attn": ...}, "tail": ...}``
     with the RG-LRU's ``h`` ``(.., batch, W)`` fp32 and ``conv``
     ``(.., batch, K-1, W)`` under ``(n_groups, rnn_per)`` and ``(rem,)``
-    axes, and window-sized KV rings under ``(n_groups,)``."""
+    axes, and window-sized KV rings under ``(n_groups,)``; for a
+    local:global pattern ``{"groups": {"local": ..., "global": ...},
+    "tail": ...}`` with window-sized rings under ``(n_groups,
+    global_every - 1)`` and ``(n_tail,)`` (None without a tail) and
+    ``max_len`` caches under ``(n_groups,)``."""
     if cfg.family == "hybrid":
         ng, rem = divmod(cfg.n_layers, cfg.rnn_per_attention + 1)
         groups = None
@@ -63,12 +69,15 @@ def build_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dic
         return {"groups": groups, "tail": tail}
     if cfg.mixer == "rwkv6":
         return R.rwkv_init_cache(cfg, batch, device, lead=(cfg.n_layers,))
-    if cfg.family not in ("dense", "vlm", "moe") or cfg.mixer != "attention":
-        raise NotImplementedError(f"{cfg.name}: {cfg.family} caches are ROADMAP A10c")
     if cfg.global_every:
-        raise NotImplementedError(
-            f"{cfg.name}: local:global ring groups are ROADMAP A3b"
-        )
+        ge = cfg.global_every
+        ng, n_tail = divmod(cfg.n_layers, ge)
+        local = L.init_kv_cache(cfg, batch, max_len, cfg.sliding_window, device)
+        glob = L.init_kv_cache(cfg, batch, max_len, None, device)
+        return {
+            "groups": {"local": _stack(_stack(local, ge - 1), ng), "global": _stack(glob, ng)},
+            "tail": _stack(local, n_tail) if n_tail else None,
+        }
     w = int(layer_windows(cfg)[0])  # uniform over layers on this path
     one = L.init_kv_cache(
         cfg, batch, max_len, None if w >= GLOBAL_WINDOW else w, device

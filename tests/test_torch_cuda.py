@@ -1445,3 +1445,85 @@ def test_engine_on_the_card_crash_restore_equals_uninterrupted(cuda, layout, tmp
     if eng2.pool is not None:
         assert eng2.pool.free_blocks == eng2.pool.num_blocks - 1
     eng2.close()
+
+
+def _zoo_params(cfg, cuda):
+    """The port's init with every matrix but the embedding x40 (at init the
+    layers barely move the residual stream and the tokens repeat)."""
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+
+    def scale(tree, key=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                scale(v, k)
+            elif v.ndim >= 2 and k != "tok" and key not in ("ln1", "ln2", "final_ln"):
+                v.mul_(40)
+
+    scale(params)
+    return params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layout", [("gemma3-12b-smoke", "contiguous"),
+                                         ("granite-moe-1b-a400m-smoke", "contiguous"),
+                                         ("granite-moe-1b-a400m-smoke", "paged")])
+def test_zoo_served_through_the_kernels(cuda, arch, layout):
+    """gemma3's ring groups and granite-moe's MoE blocks served under
+    ``matmul="pallas"``: every request finishes, decode attention launches
+    once per layer and decode step, the GEMM launches, and a second run
+    gives the same tokens bitwise.  Paged runs without prefix sharing (a
+    shared prefix's K/V depend on the whole prompt under MoE capacity) and
+    gives the contiguous run's tokens."""
+    cfg = get(arch)
+    params = _zoo_params(cfg, cuda)
+    spec = [(5, 12), (20, 9), (5, 10), (31, 6), (9, 7)]
+
+    def run(lay):
+        kv = te.KVConfig(layout="paged", block_size=16, prefix_sharing=False) \
+            if lay == "paged" else te.KVConfig()
+        scfg = te.ServeConfig(max_len=64, kv=kv, scheduler=te.SchedulerConfig(batch=3),
+                              kernel=te.KernelConfig(matmul="pallas"))
+        kern = dec.flash_decode_paged_cuda if lay == "paged" else dec.flash_decode_cuda
+        for w in (kern, matmul_cuda):
+            w.launches = 0
+        eng = te.Engine(cfg, params, scfg)
+        steps = 0
+        for r in _smoke_requests(cfg, spec, 3):
+            eng.submit(r)
+        while eng.step():
+            steps += 1
+        outs = [eng.pop_result(i) for i in range(len(spec))]
+        assert [o.status for o in outs] == [te.RequestStatus.FINISHED] * len(spec)
+        assert matmul_cuda.launches > 0 and kern.launches % cfg.n_layers == 0
+        assert cfg.n_layers <= kern.launches <= cfg.n_layers * steps
+        return [o.tolist() for o in outs]
+
+    first = run(layout)
+    assert run(layout) == first
+    assert len({t for o in first for t in o}) > len(spec)
+    if layout == "paged":
+        assert first == run("contiguous")
+
+
+@pytest.mark.cuda
+def test_moe_rows_alone_equal_the_batch_on_the_card(cuda):
+    """The MoE FFN at granite-moe-smoke's shapes on CUDA tensors: under
+    ``Dispatch.q_block`` a row's output is the same bits alone and in a
+    batch of four; a repeat call is bitwise; a plain batched call agrees
+    within bf16 rounding."""
+    from repro_torch.arch import moe
+
+    cfg = get("granite-moe-1b-a400m-smoke")
+    p = {k: v[0] for k, v in _zoo_params(cfg, cuda)["layers"]["moe"].items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 24, cfg.d_model), generator=g, device=cuda).bfloat16()
+    fixed = Dispatch(q_block=128)
+    batch, aux = moe.moe_apply(p, cfg, x, fixed)
+    again, aux2 = moe.moe_apply(p, cfg, x, fixed)
+    assert torch.equal(batch, again) and torch.equal(aux, aux2)
+    plain, _ = moe.moe_apply(p, cfg, x)
+    for r in range(4):
+        alone, _ = moe.moe_apply(p, cfg, x[r : r + 1])
+        assert torch.equal(alone[0], batch[r])
+    scale = float(batch.float().abs().max())
+    assert float((plain.float() - batch.float()).abs().max()) <= 2e-2 * scale

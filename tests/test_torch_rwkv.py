@@ -283,13 +283,14 @@ def test_bridge_carries_the_rwkv_tree():
     assert wkv["u"].dtype == torch.float32 and abs(wkv["u"].std().item() - 0.5) < 0.15
 
 
-def test_unsupported_reason_names_the_next_slice():
-    """rwkv6 and recurrentgemma run; the next unported model family is
-    gemma3's local:global backbone (A3b), then MoE (A10c)."""
-    assert tT.unsupported_reason(treg.get("rwkv6-1.6b")) is None
-    assert tT.unsupported_reason(treg.get("recurrentgemma-2b")) is None
-    assert "A3b" in tT.unsupported_reason(treg.get("gemma3-12b"))
-    assert "A10c" in tT.unsupported_reason(treg.get("granite-moe-1b-a400m"))
+@pytest.mark.parametrize("name", sorted(treg.ARCHS))
+def test_unsupported_reason_is_none_for_every_arch(name):
+    """Every architecture of the registry runs in the port; only a config
+    outside the known families and mixers has a reason."""
+    assert tT.unsupported_reason(treg.get(name)) is None
+    assert tT.unsupported_reason(treg.get(name + "-smoke")) is None
+    odd = dataclasses.replace(treg.get(name), mixer="mamba")
+    assert "mamba" in tT.unsupported_reason(odd)
 
 
 def test_launcher_serves_rwkv_on_the_cpu(capsys):
