@@ -12,6 +12,7 @@
     python3 chip_smoke.py --sched     # the scheduler at full width (phase 10)
     python3 chip_smoke.py --recover   # crash recovery at full width (phase 11)
     python3 chip_smoke.py --zoo       # the rest of the model zoo at full width (phase 12)
+    python3 chip_smoke.py --autotune  # the serve planner on the card (phase 13)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -38,9 +39,11 @@ result.  Phases, any failure of which exits non-zero:
    just after; paged tokens must equal contiguous tokens; one profiled
    decode step's card busy time and the GEMM kernel's share of it;
 4. the SDC defense (``KernelConfig(abft=...)``) at full width, paged KV:
-   (a) the phase-3 workload with ``matmul="pallas"``, ``abft="checksum"``
-   must serve the ABFT-off tokens with no detection, through the checksum
-   GEMM, with its step profile beside ABFT off; (b) the weight and KV-pool
+   (a) the first 8 requests of the phase-3 workload (the 8 that share a
+   prefix; all 16 until the script's time needed the cut) with
+   ``matmul="pallas"``, ``abft="checksum"`` must serve the ABFT-off tokens
+   with no detection, through the checksum GEMM, with its step profile
+   beside ABFT off; (b) the weight and KV-pool
    fingerprints must repeat bit for bit 100 times; (c) seeded SDC episodes
    in both modes (``max_len`` 256, 3 slots) must detect and retry every
    compute fault once, quarantine exactly the owner of every KV flip, and
@@ -174,7 +177,7 @@ result.  Phases, any failure of which exits non-zero:
    every 2 steps, 3 requests of 16 new tokens: a weight flip raises
    ``SDCUnlocalizedError`` before anything is emitted, and the restore
    with the pristine params finishes every request bitwise the ABFT-off
-   run; (f) what durability costs, in 5 rounds of turns (no manager,
+   run; (f) what durability costs, in 1 round of turns (no manager,
    ``journal_fsync_every`` 1, 8): step p50/p95 and tokens/s, the journal
    commits' ms a step, per snapshot the host-blocking stage ms, the writer
    thread's ms and the bytes; with (a)-(d)'s restore ms (read and verify,
@@ -192,20 +195,20 @@ result.  Phases, any failure of which exits non-zero:
    own operands, and the same step with layer 0's decode attention
    returning zeros missing the plain logits by more than 5% (so the gate
    can see one wrong layer); every greedy run's tokens no more than half
-   one value.  (a) gemma3-12b at full depth (48 layers: 8 groups of 5
-   local layers at window 1024 and one global; 16 query heads on 8 KV heads
-   of 240): decode attention at its global cache's shape (4096 slots) and
+   one value.  (a) gemma3-12b at 24 of its 48 layers (4 groups of 5 local
+   layers at window 1024 and one global; 16 query heads on 8 KV heads of
+   240; cut for the script's time): decode attention at its global cache's shape (4096 slots) and
    its local rings' (1024), then 16 requests (two of 1500-2000 prompt tokens, whose local
    rings wrap at prefill; 14 of 16-256; 48-64 new tokens) served with 8
    slots at ``max_len`` 4096, contiguous (the reference refuses paged for
    sliding windows), under ``"xla"`` and ``"pallas"``: every request
-   finished, decode attention 48 launches a decode step, the GEMM 289 a
-   decode step (six projections a layer and the unembedding), 288 a
+   finished, decode attention 24 launches a decode step, the GEMM 145 a
+   decode step (six projections a layer and the unembedding), 144 a
    prefill call and one a prompt; one profiled decode step; a
-   kill and restore of the ``"pallas"`` workload at 12 of the 48 layers,
-   bitwise; (b) granite-moe-1b-a400m at full depth (24 layers, 32 experts
-   top-8 of 512) on phase 3's workload: contiguous under ``"xla"`` and
-   ``"pallas"`` (decode attention 24 a step, the GEMM 97), paged without
+   kill and restore of the ``"pallas"`` workload at 12 layers, bitwise;
+   (b) granite-moe-1b-a400m at 12 of its 24 layers (32 experts top-8 of
+   512; cut for the script's time) on phase 3's workload: contiguous under
+   ``"xla"`` and ``"pallas"`` (decode attention 12 a step, the GEMM 49), paged without
    prefix sharing under both, tokens equal to contiguous; paged with
    prefix sharing under ``"pallas"``, where only the requests that alias
    the first prompt's prefix blocks may differ (their K/V past layer 0
@@ -230,7 +233,39 @@ result.  Phases, any failure of which exits non-zero:
    for memory): ``prefill`` of 576 seeded patches of 1024 and a 64-token
    prompt, 16 lockstep decode steps within 5%, then 8 text-only requests
    served through the ``Engine`` (contiguous: the reference refuses paged
-   for the VLM family), decode attention 16 launches a step.
+   for the VLM family), decode attention 16 launches a step;
+13. the serve planner on the card (run after phase 10 and before phase
+   11: run after it, its first minute of engine steps read 20-40% slower
+   than the rest; smollm-360m at full width, phase 3's weights and
+   workload, ``max_len`` 1024, ``matmul="pallas"``): (a) ``core/serveplan.plan_serve`` on the default
+   H100 ``ServeHardware`` for the workload's concurrency (16), mean prompt
+   and mean budget, uncalibrated: the sweep's host seconds, the points
+   swept, the frontier, the knobs, the predicted tokens/s and the step
+   beside its roofline; (b) after a warm-up run (four requests, not
+   kept: the first run of the phase read slower), four anchors
+   (contiguous at 8 and 16 slots,
+   paged at 16, the prefill lane at chunk 32 on 16 slots; 16-token blocks)
+   served step by step: the median host wall of the steady steps (past 3
+   warm-up decode steps, at the run's commonest row count, no monolithic
+   admission in the step) fits ``Calibration``, then the plan again with
+   it into a temporary cache; (c) the calibrated winner, the launcher's
+   defaults (4 slots, the unset decode split, prefill bucket 16) and the
+   further points of ``PLAN_POINTS`` (paged and contiguous, slots 8-32,
+   blocks 8-32, no lane: a lane run takes 185-300 steps of 110-180 ms,
+   so the anchor is the only one, for the script's time) served the same
+   way: predicted tokens/s
+   beside the measured steady and whole-workload tokens/s, the roofline's
+   share of each predicted step, whether the point is on the calibrated
+   frontier, Spearman's rank correlation (all points and the points not
+   fitted) and whether the predicted top-1 is in the measured top 3
+   (findings, not gates); (d) every run finishes every request, runs that
+   share a block size give the same greedy tokens (those at 16 phase 3's
+   oracle), each run launches the decode kernel of its layout and the GEMM
+   (counts set to 0 just before, read just after), a cached replan returns
+   the same knobs, and a corrupted cache entry is searched again to the same
+   knobs; (e) ``python -m repro_torch.launch.serve --arch smollm-360m
+   --autotune --concurrency 16 --max-len 1024 --matmul pallas`` in a
+   subprocess exits 0 and prints its ``[autotune]`` line.
 
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
@@ -240,7 +275,9 @@ no ``ok`` line.  ``--conv`` runs phase 1 and phase 5 the same way,
 checks of phase 2, ``--sched`` phase 1, the phase-3 oracle runs phase 10
 needs (contiguous ``"xla"`` and ``"pallas"``, paged ``"pallas"``) and phase
 10, whose JSON it prints last; ``--recover`` phase 1, the two phase-3
-``"pallas"`` runs phase 11 needs as its oracle, and phase 11.  ``--gemm --baseline FILE`` also builds FILE (another
+``"pallas"`` runs phase 11 needs as its oracle, and phase 11; ``--autotune``
+phase 1, the contiguous ``"pallas"`` run of phase 3 (phase 13's oracle) and
+phase 13, whose JSON it prints last.  ``--gemm --baseline FILE`` also builds FILE (another
 version of ``csrc/matmul.cu`` with the same C entry points, say the
 parent commit's) and times it beside this one on the same inputs, in turns
 (baseline, this, this, baseline), with the C entry point's host
@@ -306,7 +343,7 @@ from repro_torch.arch import layers as L  # noqa: E402
 from repro_torch.arch import rwkv as R  # noqa: E402
 from repro_torch.arch.transformer import Model, _index  # noqa: E402
 from repro_torch.configs.registry import get  # noqa: E402
-from repro_torch.core import networks  # noqa: E402
+from repro_torch.core import networks, serveplan  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import abft  # noqa: E402
 from repro_torch.kernels.conv2d import conv2d as conv  # noqa: E402
@@ -1099,6 +1136,7 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
 
 
 SDC_MAX_LEN, SDC_SLOTS = 256, 3
+SDC_REQUESTS = 8  # (a): the phase-3 requests served with ABFT, cut for time
 SDC_LAYERS = 8  # (c), (d): 8 of smollm-360m's 32 layers (see CRASH_LAYERS)
 SDC_MIXES = [(1, 1), (2, 1), (1, 2), (0, 1), (2, 0), (1, 1)]  # tests/test_sdc.py:175
 
@@ -1122,15 +1160,17 @@ def sdc_engines(cfg, params, mode: str):
 def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) -> dict:
     """Phase 4, (a)-(d) of the module docstring."""
     out: dict = {}
-    print("-- (a) the phase-3 workload with abft='checksum'", flush=True)
-    res, toks, eng = serve_once(cfg, params, "paged", "pallas", reqs, abft_mode="checksum")
+    print(f"-- (a) the first {SDC_REQUESTS} requests of the phase-3 workload with "
+          f"abft='checksum'", flush=True)
+    res, toks, eng = serve_once(cfg, params, "paged", "pallas", reqs[:SDC_REQUESTS],
+                                abft_mode="checksum")
     for n, c in res["launches"].items():
         totals[n] += c
     if res["launches"]["gemm_bf16_abft"] <= 0:
         fail("abft serve run: the checksum GEMM was never launched")
     if res["sdc_detected"]:
         fail(f"abft serve run: {res['sdc_detected']} detections on a clean run")
-    if toks != off_tokens:
+    if toks != off_tokens[:SDC_REQUESTS]:
         fail("abft serve run: tokens differ from the abft-off paged/pallas run")
     print(f"abft=checksum tokens == abft=off tokens, 0 detections; tokens/s "
           f"{res['tok_per_s']:.1f} vs {off_run['tok_per_s']:.1f} off, ITL p50/p95 "
@@ -1525,7 +1565,9 @@ SNAP_EVERY, SNAP_KEEP = 16, 2     # (a)-(d): snapshots every 16 steps, 2 kept
 # six requests waiting
 CRASH_AT = 52
 CHAIN_STEPS = 8                   # (d): the second kill, 8 steps into the replay
-COST_ROUNDS = 5                   # (f): rounds of (no manager, fsync 1, fsync 8)
+# (f): rounds of (no manager, fsync 1, fsync 8); 5 until phase 13 needed
+# the script's time
+COST_ROUNDS = 1
 
 
 def recover_scfg(layout: str, directory: str | None, *, every: int = SNAP_EVERY,
@@ -1868,6 +1910,292 @@ def recover_phase(cfg, params, reqs: list, oracle: dict, totals: dict, card: str
                               and mine[0][k] is not None}
     print("durability cost, medians over the rounds: " + json.dumps(summary), flush=True)
     out["cost"] = dict(rows=rows, medians=summary)
+    return out
+
+
+# ------------------------------------------------------ serve-planner phase --
+
+# (b): the anchors the calibration is fitted on, spanning its four terms
+# (two occupancies, a paged run, a chunked run); (c): further points of the
+# planner's space, on and off its frontier, measured beside the calibrated
+# winner and the launcher's defaults.  (layout, slots, block size, chunk)
+PLAN_ANCHORS = [("contiguous", 8, 16, 0), ("contiguous", 16, 16, 0),
+                ("paged", 16, 16, 0), ("contiguous", 16, 16, 32)]
+PLAN_POINTS = [("paged", 8, 16, 0), ("paged", 16, 8, 0), ("contiguous", 32, 8, 0),
+               ("paged", 16, 32, 0), ("contiguous", 16, 32, 0)]
+PLAN_WARMUP = 3  # decode steps of a run left out of its steady steps
+
+
+def spearman(xs: list[float], ys: list[float]) -> float:
+    """Spearman's rank correlation (ties take their mean rank)."""
+    def ranks(v):
+        order = sorted(range(len(v)), key=lambda i: v[i])
+        r = [0.0] * len(v)
+        i = 0
+        while i < len(order):
+            j = i
+            while j + 1 < len(order) and v[order[j + 1]] == v[order[i]]:
+                j += 1
+            for k in range(i, j + 1):
+                r[order[k]] = (i + j) / 2
+            i = j + 1
+        return r
+
+    rx, ry = ranks(xs), ranks(ys)
+    return float(np.corrcoef(rx, ry)[0, 1])
+
+
+def knobs_of(point, budget_tokens: int):
+    """ServeKnobs of a (layout, slots, block size, chunk) point, its pool
+    sized to the planner's iso-HBM budget as the sweep sizes it."""
+    layout, slots, bs, chunk = point
+    return serveplan.ServeKnobs(
+        slots=slots, kv_layout=layout, block_size=bs,
+        num_blocks=budget_tokens // bs + 1 if layout == "paged" else None,
+        prefill_chunk=chunk, token_budget=chunk or None)
+
+
+def plan_run(cfg, params, reqs: list, scfg, tag: str) -> tuple[dict, list]:
+    """Serve ``reqs`` step by step under ``scfg`` (``matmul="pallas"``): per
+    step its host wall (a step ends in the tokens' copy to the host), the
+    rows it decoded and the prefill calls it made.  The steady steps are
+    those past the first ``PLAN_WARMUP`` decode steps that decoded the run's
+    commonest row count and made no monolithic admission (a lane's chunk
+    belongs to the chunked steady state); their median wall is the measured
+    step.  Every request must finish its budget, the decode kernel of the
+    layout and the GEMM must launch (counts set to 0 just before, read just
+    after)."""
+    eng = Engine(cfg, params, scfg, device=DEV)
+    rows = [0]
+
+    def on_token(rid, tok, idx, done):
+        rows[0] += idx > 0
+
+    calls = HostTimer({"prefill": (Model, "prefill")})
+    steps = []
+    try:
+        for w in WRAPPERS.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        alive = True
+        while alive:
+            rows[0], n_pre = 0, calls.calls["prefill"]
+            ts = time.perf_counter()
+            alive = eng.step(on_token)
+            steps.append((time.perf_counter() - ts, rows[0], calls.calls["prefill"] - n_pre))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in WRAPPERS.items()}
+    finally:
+        calls.restore()
+    outs = [eng.pop_result(r.request_id) for r in reqs]
+    bad = [(i, o.status.value, len(o)) for i, o in enumerate(outs)
+           if o.status.value != "FINISHED" or len(o) != reqs[i].max_new]
+    if bad:
+        fail(f"{tag}: requests did not finish their budgets: {bad}")
+    toks = [o.tolist() for o in outs]
+    if not all(0 <= t < cfg.vocab for row in toks for t in row):
+        fail(f"{tag}: a token is out of the vocabulary")
+    paged = scfg.kv.layout == "paged"
+    if paged:
+        eng.pool.assert_invariants(eng.live_block_refs())
+        if eng.pool.free_blocks != eng.pool.num_blocks - 1:
+            fail(f"{tag}: blocks leaked after drain")
+    for n in ("flash_decode_paged" if paged else "flash_decode", "gemm_bf16"):
+        if launches[n] <= 0:
+            fail(f"{tag}: kernel {n} was never launched")
+    chunked = scfg.scheduler.prefill_chunk > 0
+    decode = [s for s in steps if s[1] > 0][PLAN_WARMUP:]
+    cand = [s for s in decode if chunked or s[2] == 0]
+    mode_rows = statistics.mode(s[1] for s in cand)
+    steady = [s[0] for s in cand if s[1] == mode_rows]
+    n_tok = sum(len(t) for t in toks)
+    res = dict(tag=tag, steps=len(steps), steady_steps=len(steady), rows=mode_rows,
+               step_ms=1e3 * statistics.median(steady),
+               steady_tok_per_s=mode_rows / statistics.median(steady),
+               tokens=n_tok, wall_s=wall, tok_per_s=n_tok / wall, launches=launches)
+    print(f"{tag}: {len(steps)} steps, {len(steady)} steady at {mode_rows} rows, step p50 "
+          f"{res['step_ms']:.2f} ms = {res['steady_tok_per_s']:.1f} tok/s steady; {n_tok} "
+          f"tokens in {wall:.3f} s = {res['tok_per_s']:.1f} tok/s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if len(steady) < 20:
+        fail(f"{tag}: only {len(steady)} steady steps (want at least 20)")
+    del eng
+    torch.cuda.empty_cache()
+    return res, toks
+
+
+def autotune_phase(cfg, params, reqs: list, oracle: list, totals: dict, card: str) -> dict:
+    """Phase 13, (a)-(e) of the module docstring.  ``oracle`` holds phase
+    3's contiguous ``"pallas"`` tokens (16-token splits)."""
+    out: dict = {"card": card}
+    prompt = round(statistics.fmean(len(r.prompt) for r in reqs))
+    budget = round(statistics.fmean(r.max_new for r in reqs))
+    wl = serveplan.ServeWorkload(concurrency=len(reqs), prompt_len=prompt, decode_len=budget)
+    space = serveplan.ServePlanSpace()
+    budget_tokens = max(space.slot_counts) * MAX_LEN
+    tmp = tempfile.mkdtemp(prefix="serve_plans_")
+    try:
+        print(f"-- (a) plan for the H100, uncalibrated: {wl}", flush=True)
+        t0 = time.perf_counter()
+        points = serveplan.sweep_serve_space(cfg, max_len=MAX_LEN, workload=wl)
+        sweep_s = time.perf_counter() - t0
+        plan0 = serveplan.plan_serve(cfg, max_len=MAX_LEN, workload=wl, cache=False)
+        p0 = plan0.predicted
+        roof0 = p0["rows"] / p0["tokens_per_s"]
+        print(f"swept {len(points)} points in {sweep_s:.3f} s of host time, frontier "
+              f"{plan0.frontier_size}: {plan0.knobs}; predicted {p0['tokens_per_s']:.1f} tok/s "
+              f"at {p0['rows']} rows, the step {1e3 * roof0:.4f} ms = its roofline", flush=True)
+        out["uncalibrated"] = dict(sweep_host_s=sweep_s, points=len(points),
+                                   frontier=plan0.frontier_size, knobs=plan0.knobs.as_dict(),
+                                   predicted=p0, step_ms=1e3 * roof0)
+
+        def price(knobs, rows=None):
+            w = wl if rows is None else dataclasses.replace(wl, concurrency=rows)
+            return serveplan.price_decode_step(cfg, knobs, max_len=MAX_LEN, workload=w)
+
+        def kernel():
+            return KernelConfig(matmul="pallas", attention="flash")
+
+        runs, groups = [], {}
+
+        def measure(tag, knobs, scfg, bs):
+            res, toks = plan_run(cfg, params, reqs, scfg, tag)
+            res.update(knobs=knobs.as_dict(), block=bs)
+            for n, c in res["launches"].items():
+                totals[n] += c
+            groups.setdefault(bs, []).append((tag, toks))
+            runs.append(res)
+            return res
+
+        print("-- (b) calibrate on anchors spanning the fitted terms", flush=True)
+        pairs, anchors = [], [knobs_of(pt, budget_tokens) for pt in PLAN_ANCHORS]
+        Engine(cfg, params, ServeConfig.from_plan_knobs(anchors[0], max_len=MAX_LEN,
+                                                        kernel=kernel()), device=DEV).run(reqs[:4])
+        for pt, knobs in zip(PLAN_ANCHORS, anchors):
+            res = measure(f"anchor {pt}", knobs, ServeConfig.from_plan_knobs(
+                knobs, max_len=MAX_LEN, kernel=kernel()), pt[2])
+            # the anchor's step priced at the rows it ran
+            pairs.append((price(knobs, res["rows"]), res["step_ms"] / 1e3))
+        calib = serveplan.Calibration.fit(pairs)
+        print(f"calibration: {calib}", flush=True)
+        out["calibration"] = dataclasses.asdict(calib)
+        path = os.path.join(tmp, "plans.json")
+        t0 = time.perf_counter()
+        plan = serveplan.plan_serve(cfg, max_len=MAX_LEN, workload=wl, calibration=calib,
+                                    cache=path)
+        plan_s = time.perf_counter() - t0
+        print(f"calibrated plan ({plan.source}, {plan_s:.3f} s): {plan.knobs}; predicted "
+              f"{plan.predicted['tokens_per_s']:.1f} tok/s, frontier {plan.frontier_size}",
+              flush=True)
+        out["plan"] = dict(knobs=plan.knobs.as_dict(), predicted=plan.predicted,
+                           frontier=plan.frontier_size, host_s=plan_s)
+
+        print("-- (c) rank: the winner, the launcher's defaults, points on and off the "
+              "frontier", flush=True)
+        win = plan.knobs
+        if win in anchors:
+            runs[anchors.index(win)]["tag"] += " = the winner"
+        else:
+            measure("winner", win, ServeConfig.from_plan_knobs(win, max_len=MAX_LEN,
+                                                               kernel=kernel()), win.block_size)
+        # the launcher's defaults at --max-len 1024 --matmul pallas: 4 slots,
+        # contiguous, the unset decode split, prefill bucket 16
+        dflt_bs = attn_ops._pick_decode_bk(MAX_LEN)
+        dflt = serveplan.ServeKnobs(slots=4, kv_layout="contiguous", block_size=dflt_bs)
+        measure("launcher defaults", dflt, ServeConfig(
+            max_len=MAX_LEN, scheduler=SchedulerConfig(batch=4, prefill_bucket=16),
+            kernel=kernel()), dflt_bs)
+        for pt in PLAN_POINTS:
+            knobs = knobs_of(pt, budget_tokens)
+            if knobs == win:
+                continue
+            measure(f"point {pt}", knobs, ServeConfig.from_plan_knobs(
+                knobs, max_len=MAX_LEN, kernel=kernel()), pt[2])
+        frontier = {p.knobs for p in serveplan.pareto_prune(
+            serveplan.sweep_serve_space(cfg, max_len=MAX_LEN, workload=wl, calibration=calib),
+            keys=("us_per_token", "ttft_ms", "energy_pj_per_token"))}
+        for r in runs:
+            cost = price(serveplan.ServeKnobs(**r["knobs"]))
+            step = cost.step_s(calib)
+            r.update(predicted_tok_per_s=cost.tokens_per_s(calib), predicted_rows=cost.rows,
+                     predicted_step_ms=1e3 * step, roofline_ms=1e3 * cost.roofline_s,
+                     roofline_share=cost.roofline_s / step,
+                     on_frontier=serveplan.ServeKnobs(**r["knobs"]) in frontier)
+            print(f"  {r['tag']:36s} predicted {r['predicted_tok_per_s']:8.1f} tok/s "
+                  f"({r['predicted_rows']} rows, step {r['predicted_step_ms']:.2f} ms, roofline "
+                  f"{r['roofline_ms']:.4f} ms = {100 * r['roofline_share']:.2f}%), measured "
+                  f"{r['steady_tok_per_s']:8.1f} steady ({r['rows']} rows, {r['step_ms']:.2f} "
+                  f"ms), {r['tok_per_s']:7.1f} over the workload"
+                  + (", on the frontier" if r["on_frontier"] else ""), flush=True)
+        pred = [r["predicted_tok_per_s"] for r in runs]
+        held = [r for r in runs if not r["tag"].startswith("anchor")]
+        best = max(range(len(runs)), key=lambda i: pred[i])
+        ranking = {}
+        for name, key in (("steady", "steady_tok_per_s"), ("workload", "tok_per_s")):
+            meas = [r[key] for r in runs]
+            top3 = sorted(range(len(runs)), key=lambda i: -meas[i])[:3]
+            ranking[name] = dict(
+                spearman=spearman(pred, meas),
+                spearman_held_out=spearman([r["predicted_tok_per_s"] for r in held],
+                                           [r[key] for r in held]),
+                top1_in_top3=best in top3, predicted_top1=runs[best]["tag"],
+                measured_top3=[runs[i]["tag"] for i in top3])
+            print(f"{name} tokens/s: Spearman {ranking[name]['spearman']:.3f} over {len(runs)} "
+                  f"points ({ranking[name]['spearman_held_out']:.3f} over the {len(held)} not "
+                  f"fitted); predicted top-1 {runs[best]['tag']!r} "
+                  f"{'is' if best in top3 else 'is not'} in the measured top 3 "
+                  f"{ranking[name]['measured_top3']}", flush=True)
+        out["ranking"] = ranking
+        out["runs"] = runs
+
+        print("-- (d) gates: tokens by block size, the plan cache", flush=True)
+        for bs, got in sorted(groups.items()):
+            want = oracle if bs == BS else got[0][1]
+            for tag, toks in got:
+                if toks != want:
+                    fail(f"{tag}: tokens differ from the other runs at block size {bs}"
+                         + (" (phase 3's oracle)" if bs == BS else ""))
+            print(f"block size {bs}: {len(got)} runs, the same tokens"
+                  + (" as phase 3's oracle" if bs == BS else ""), flush=True)
+        again = serveplan.plan_serve(cfg, max_len=MAX_LEN, workload=wl, calibration=calib,
+                                     cache=path)
+        if again.source != "cache" or again.knobs != plan.knobs:
+            fail(f"cached replan: {again.source} {again.knobs}, want cache {plan.knobs}")
+        data = json.loads(Path(path).read_text())
+        (key,) = data
+        data[key]["knobs"]["block_size"] = -5
+        Path(path).write_text(json.dumps(data))
+        healed = serveplan.plan_serve(cfg, max_len=MAX_LEN, workload=wl, calibration=calib,
+                                      cache=path)
+        if healed.source != "search" or healed.knobs != plan.knobs:
+            fail(f"corrupt entry: {healed.source} {healed.knobs}, want a search of {plan.knobs}")
+        print("cached replan: the same knobs; a corrupted entry searched again: the same knobs",
+              flush=True)
+
+        print("-- (e) the launcher, --autotune", flush=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "smollm-360m",
+               "--autotune", "--concurrency", "16", "--max-len", str(MAX_LEN),
+               "--matmul", "pallas"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   REPRO_TORCH_SERVE_PLAN_CACHE=os.path.join(tmp, "launcher.json"))
+        t0 = time.perf_counter()
+        cli = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600,
+                             cwd=ROOT)
+        cli_s = time.perf_counter() - t0
+        lines = cli.stdout.splitlines()
+        if cli.returncode != 0 or not any(ln.startswith("[autotune] ") for ln in lines):
+            fail(f"launcher --autotune: exit {cli.returncode}\n{cli.stdout[-2000:]}\n"
+                 f"{cli.stderr[-2000:]}")
+        print(f"launcher exit 0 in {cli_s:.1f} s: " + "; ".join(
+            ln for ln in lines if ln.startswith(("[autotune]", "[continuous", "  statuses"))),
+            flush=True)
+        out["launcher"] = dict(seconds=cli_s, lines=lines[:3])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2460,7 +2788,10 @@ def rg_phase(totals: dict, results: dict) -> dict:
 
 # ------------------------------------------------------------ the model zoo --
 
-ZOO_LAYERS = {"grok-1-314b": 4, "llava-next-34b": 16}  # (c), (e): cut for memory
+# (c), (e): cut for memory; (a), (b): cut for the script's time (full
+# depth until the serve planner's phase needed it)
+ZOO_LAYERS = {"grok-1-314b": 4, "llava-next-34b": 16, "gemma3-12b": 24,
+              "granite-moe-1b-a400m": 12}
 GEMMA_MAX_LEN = 4096
 WHISPER_MAX_LEN, WHISPER_PROMPT, WHISPER_STEPS = 448, 4, 64
 ZOO_PREFILL, ZOO_STEPS = 64, 16  # (c), (e): prompt tokens, lockstep decode steps
@@ -2573,8 +2904,8 @@ def gemma_workload(cfg, seed: int = 0) -> list:
 
 
 def gemma_phase(totals: dict, results: dict) -> dict:
-    """(a): gemma3-12b at full depth."""
-    cfg = get("gemma3-12b")
+    """(a): gemma3-12b at full width, ``ZOO_LAYERS`` of its 48 layers."""
+    cfg = cut("gemma3-12b")
     ge, ng = cfg.global_every, cfg.n_layers // cfg.global_every
     G, W = cfg.n_heads // cfg.n_kv_heads, cfg.sliding_window
     check_decode(results, SLOTS, cfg.n_kv_heads, G, cfg.resolved_head_dim, GEMMA_MAX_LEN,
@@ -2661,10 +2992,11 @@ def moe_row_invariance(cfg, params, n: int = 8, plen: int = 200) -> list[dict]:
 
 
 def moe_phase(totals: dict, results: dict) -> dict:
-    """(b): granite-moe-1b-a400m at full depth."""
+    """(b): granite-moe-1b-a400m at full width, ``ZOO_LAYERS`` of its 24
+    layers."""
     from repro_torch.arch import moe
 
-    cfg = get("granite-moe-1b-a400m")
+    cfg = cut("granite-moe-1b-a400m")
     params = zoo_params(cfg)
     n_params = sum(t.numel() for t in _leaves(params))
     m = cfg.moe
@@ -3525,7 +3857,8 @@ def main() -> None:
         return
     sched_only = sys.argv[1:] == ["--sched"]
     recover_only = sys.argv[1:] == ["--recover"]
-    only = sched_only or recover_only
+    autotune_only = sys.argv[1:] == ["--autotune"]
+    only = sched_only or recover_only or autotune_only
     if not only:
         banner("kernels against their plain versions")
         check_decode(results, SLOTS, 5, 3, 64, MAX_LEN, BS,
@@ -3555,6 +3888,8 @@ def main() -> None:
                 continue  # --sched needs the oracles of phase 10 alone
             if recover_only and matmul == "xla":
                 continue  # --recover needs the "pallas" oracles alone
+            if autotune_only and (layout, matmul) != ("contiguous", "pallas"):
+                continue  # --autotune needs the contiguous "pallas" oracle alone
             res, toks, _ = serve_once(cfg, params, layout, matmul, reqs)
             runs.append(res)
             tokens[(layout, matmul)] = toks
@@ -3585,6 +3920,13 @@ def main() -> None:
         print(card)
         print(json.dumps({"recover": recover, "launches": totals}))
         return
+    if autotune_only:
+        banner("the serve planner on the card")
+        plans = autotune_phase(cfg, params, reqs, tokens[("contiguous", "pallas")], totals, card)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"autotune": plans, "launches": totals}))
+        return
 
     banner("where a decode step's time goes")
     prof = profile_decode(cfg, params, reqs, focus=(GEMM_KERNEL,))
@@ -3594,6 +3936,10 @@ def main() -> None:
 
     banner("scheduling at full width")
     sched = sched_phase(cfg, params, reqs, tokens, mono, totals, card)
+
+    # before phase 11: after it the first minute of steps read slower
+    banner("the serve planner on the card")
+    plans = autotune_phase(cfg, params, reqs, tokens[("contiguous", "pallas")], totals, card)
 
     banner("crash recovery at full width")
     recover = recover_phase(cfg, params, reqs, tokens, totals, card)
@@ -3624,7 +3970,8 @@ def main() -> None:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=card, device=name, torch=torch.__version__, kernels=results,
-             serve=runs, decode_profile=prof, sdc=sdc, sched=sched, recover=recover, conv=convs,
+             serve=runs, decode_profile=prof, sdc=sdc, sched=sched, recover=recover,
+             autotune=plans, conv=convs,
              rwkv=rwkv,
              recurrentgemma=rgemma, zoo=zoo,
              seconds=time.perf_counter() - t_start),

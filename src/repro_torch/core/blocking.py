@@ -16,8 +16,10 @@ implement the same style:
 The port's copy of the reference's ``core/blocking.py``: ``search_blocking``
 (the top-down beam search the kernel tile choices run), with the
 reference's defaults as fixed settings, bit for bit the reference's
-results.  The seeded enumeration, the frontier enumeration for the DSE
-sweep and the greedy order pass of the optimizer wait for the port's DSE.
+results; the frontier enumeration of the DSE sweep
+(``enumerate_frontier``) and the greedy order pass (``optimize_orders``).
+The reference's seeded enumeration (``iter_blockings``) has no caller in
+the port and is not copied.
 """
 
 from __future__ import annotations
@@ -66,6 +68,27 @@ def order_candidates(
     if default not in seen:
         cands.append(default)
     return cands
+
+
+def optimize_orders(schedule: Schedule, table: CostTable | None = None) -> Report:
+    """Greedy per-level order selection, innermost level first, evaluating the
+    full analytical energy at each step."""
+    table = table or CostTable.asic_28nm(schedule)
+    best = evaluate(schedule, table)
+    orders = list(schedule.order)
+    for l in range(len(schedule.levels)):
+        active = [d for d in schedule.nest.dims if schedule.tiling[d][l] > 1]
+        if not active:
+            continue
+        for cand in order_candidates(schedule.nest, active):
+            trial_orders = list(orders)
+            trial_orders[l] = cand
+            trial = dataclasses.replace(schedule, order=tuple(trial_orders))
+            rep = evaluate(trial, table)
+            if rep.energy_pj < best.energy_pj:
+                best = rep
+                orders = trial_orders
+    return best
 
 
 # ------------------------------------------------------------------ tiling --
@@ -128,6 +151,172 @@ def _strided_indices(n: int, k: int) -> list[int]:
     return sorted({round(i * (n - 1) / (k - 1)) for i in range(k)})
 
 
+def _footprint_words(
+    nest: LoopNest, dims: tuple[str, ...], tiles: np.ndarray
+) -> np.ndarray:
+    """Vectorized sum-over-tensors tile footprint (words) for an (m, D)
+    array of iteration-space tiles — the NumPy form of the `footprint`
+    closure in `_tile_choices`."""
+    idx = {d: i for i, d in enumerate(dims)}
+    words = np.zeros(tiles.shape[0], dtype=np.int64)
+    for t in nest.tensors:
+        n = np.ones(tiles.shape[0], dtype=np.int64)
+        handled: set[str] = set()
+        for base, (filt, stride) in t.coupled.items():
+            n = n * (stride * (tiles[:, idx[base]] - 1) + tiles[:, idx[filt]])
+            handled.add(base)
+            handled.add(filt)
+        for d in t.dims:
+            if d not in handled:
+                n = n * tiles[:, idx[d]]
+        words += n
+    return words
+
+
+def order_templates(nest: LoopNest) -> list[tuple[str, ...]]:
+    """Uniform (all-levels) stationarity order templates: for each tensor,
+    its irrelevant dims innermost so it stays resident below, plus the
+    default order.  Trip-1 dims are transparent to stationarity, so these
+    templates cover the classic weight/output/input-stationary orderings for
+    every tiling at once — the frontier enumeration in
+    :func:`enumerate_frontier` crosses tilings with them."""
+    cands: list[tuple[str, ...]] = []
+    seen: set[tuple[str, ...]] = set()
+    for t in nest.tensors:
+        irr = [d for d in nest.dims if d not in t.relevant]
+        rel = [d for d in nest.dims if d in t.relevant]
+        cand = tuple(irr + rel)
+        if cand not in seen:
+            seen.add(cand)
+            cands.append(cand)
+    if tuple(nest.dims) not in seen:
+        cands.append(tuple(nest.dims))
+    return cands
+
+
+def enumerate_frontier(
+    nest: LoopNest,
+    levels: Sequence[MemLevel],
+    array: ArraySpec,
+    dataflow: Dataflow,
+    max_choices_per_level: int = 48,
+    word_bytes: int = 2,
+    max_frontier: int = 32768,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Enumerate a (tiling x order-template) candidate frontier as packed
+    (n, L, D) tiling / order-index arrays for the batched cost engine.
+
+    Same choice space as the reference's `iter_blockings`, but fully
+    vectorized: per-level divisor cross-products, footprint filters and the
+    stratified subsample all run as NumPy array ops, and no per-candidate
+    Schedule object is ever constructed (deep hierarchies' cross-product
+    frontiers would otherwise burn seconds of pure-Python object churn).
+    The running total is capped at ``max_frontier`` rows by an
+    evenly-strided subsample over the footprint-stratified choice sets.
+
+    The hierarchy-batched DSE sweep (core/dse.py) enumerates ONE frontier
+    per nest against the most permissive capacities of a hierarchy family,
+    prices it under every member's cost table in a single
+    ``evaluate_hierarchies`` call, and masks per-member feasibility with the
+    vectorized footprints — so pass the family's per-level maximum
+    capacities in ``levels``.
+    """
+    L = len(levels)
+    dims = tuple(nest.dims)
+    D = len(dims)
+    dim_idx = {d: i for i, d in enumerate(dims)}
+    tmpls = order_templates(nest)
+    K = len(tmpls)
+    tmpl_rows = np.array(
+        [[dim_idx[d] for d in o] for o in tmpls], dtype=np.int64
+    )  # (K, D)
+
+    sp = np.array([dataflow.factor(d) for d in dims], dtype=np.int64)
+    top_rem = tuple(
+        math.ceil(nest.bounds[d] / int(sp[j])) for j, d in enumerate(dims)
+    )
+    boundary = next(
+        (i for i, lvl in enumerate(levels) if not lvl.per_pe), L
+    )
+    max_tilings = max(1, max_frontier // K)
+
+    # Per-node choice sets, vectorized and memoized.  The cumulative base
+    # tile at level l is fully determined by (l, rem) — base = top_rem/rem
+    # (x spatial at shared levels) — so nodes reached along different paths
+    # share their enumeration.
+    _node_cache: dict[tuple[int, tuple[int, ...]], np.ndarray] = {}
+
+    def node_choices(l: int, rem: tuple[int, ...]) -> np.ndarray:
+        got = _node_cache.get((l, rem))
+        if got is not None:
+            return got
+        # cross product of per-dim divisor factors, largest-dims first is
+        # irrelevant here: footprints filter vectorized below
+        grids = np.meshgrid(
+            *[np.array(divisors(r), dtype=np.int64) for r in rem],
+            indexing="ij",
+        )
+        combos = np.stack([g.ravel() for g in grids], axis=1)  # (m, D)
+        base = np.array(
+            [t // r for t, r in zip(top_rem, rem)], dtype=np.int64
+        )
+        if l >= boundary:
+            base = base * sp
+        words = _footprint_words(nest, dims, base[None, :] * combos)
+        if levels[l].double_buffered:
+            words = words * 2
+        cap = levels[l].capacity_bytes
+        if cap is not None:
+            mask = words <= cap // word_bytes
+            combos, words = combos[mask], words[mask]
+        if len(combos) > max_choices_per_level:
+            # stratified by footprint: keep spread from tiny to full tiles
+            order = np.argsort(words, kind="stable")
+            combos = combos[
+                order[_strided_indices(len(combos), max_choices_per_level)]
+            ]
+        _node_cache[(l, rem)] = combos
+        return combos
+
+    # Level-synchronous frontier expansion: the whole partial-tiling frontier
+    # advances one level per step, with choice sets shared across equal
+    # remainders and the running total capped by an evenly-strided subsample
+    # (choices are footprint-stratified, so the stride keeps the spread).
+    prefix = np.empty((1, 0, D), dtype=np.int64)
+    rems = np.array([top_rem], dtype=np.int64)
+    for l in range(L - 1):
+        uniq, inv = np.unique(rems, axis=0, return_inverse=True)
+        parts_pre: list[np.ndarray] = []
+        parts_rem: list[np.ndarray] = []
+        for u_i in range(len(uniq)):
+            choices = node_choices(l, tuple(int(x) for x in uniq[u_i]))
+            if len(choices) == 0:
+                continue  # dead branch: nothing fits this level
+            pre = prefix[inv == u_i]
+            k, m = len(pre), len(choices)
+            tiled = np.tile(choices, (k, 1))
+            parts_pre.append(
+                np.concatenate(
+                    [np.repeat(pre, m, axis=0), tiled[:, None, :]], axis=1
+                )
+            )
+            parts_rem.append(uniq[u_i][None, :] // tiled)
+        if not parts_pre:
+            raise ValueError("no feasible blocking fits the memory hierarchy")
+        prefix = np.concatenate(parts_pre)
+        rems = np.concatenate(parts_rem)
+        if len(prefix) > max_tilings:
+            idx = _strided_indices(len(prefix), max_tilings)
+            prefix, rems = prefix[idx], rems[idx]
+    til = np.concatenate([prefix, rems[:, None, :]], axis=1)  # (m, L, D)
+    m = til.shape[0]
+    til = np.repeat(til, K, axis=0)                  # (m*K, L, D)
+    odr = np.tile(
+        np.repeat(tmpl_rows[:, None, :], L, axis=1), (m, 1, 1)
+    )                                                # (m*K, L, D)
+    return til, odr
+
+
 @dataclasses.dataclass
 class SearchResult:
     best: Report
@@ -169,7 +358,9 @@ def search_blocking(
     levels: Sequence[MemLevel],
     array: ArraySpec,
     dataflow: Dataflow,
+    table: CostTable | None = None,
     beam: int = 24,
+    max_evals: int = 0,  # 0 = unlimited; else cap on mappings priced
     tile_filter: Callable[[int, dict[str, int], dict[str, int]], bool] | None = None,
 ) -> SearchResult:
     """Top-down beam search with exact partial costs.
@@ -188,7 +379,10 @@ def search_blocking(
     A greedy dive first establishes an incumbent; beam expansions whose
     already-fixed cost plus an optimistic remainder (sound per-level traffic
     lower bounds + MAC energy) exceed it are skipped.  At most
-    ``MAX_CHOICES_PER_LEVEL`` tiles are tried per level.
+    ``MAX_CHOICES_PER_LEVEL`` tiles are tried per level.  ``table`` prices
+    under another cost table than the levels' own; ``max_evals > 0`` bounds
+    the total number of mappings priced (the search always keeps at least one
+    candidate per level so it can complete).
 
     ``tile_filter`` (not in the reference; None leaves every result as the
     reference's) describes a kernel's own limits to the search: called as
@@ -208,7 +402,7 @@ def search_blocking(
     sp_factor = {d: dataflow.factor(d) for d in dims}
     full_rem = {d: math.ceil(nest.bounds[d] / sp_factor[d]) for d in dims}
     boundary = next((i for i, lvl in enumerate(levels) if not lvl.per_pe), L)
-    tbl = CostTable.for_levels(levels)
+    tbl = table or CostTable.for_levels(levels)
 
     cm: BatchedCostModel | None
     try:
@@ -384,6 +578,7 @@ def search_blocking(
         return got
 
     evaluated = 0
+    budget = max_evals if max_evals and max_evals > 0 else None
 
     def run(width: int, incumbent: float) -> Report | None:
         nonlocal evaluated
@@ -409,7 +604,10 @@ def search_blocking(
             cand_rows: list[np.ndarray] = []
             groups: list[tuple] = []  # (cost, odr, new_rem, new_rvec, cands)
             n_rows = 0
+            stop = False
             for cost, til, odr, rem, rvec in entries:
+                if stop:
+                    break
                 if (
                     incumbent != math.inf
                     and cost + mac_e + lb_level(l, rem, rvec) > incumbent
@@ -435,6 +633,13 @@ def search_blocking(
                         if optimistic > incumbent:
                             continue
                     cands = cands_for(active)
+                    if (
+                        budget is not None
+                        and groups
+                        and evaluated + n_rows + len(cands) > budget
+                    ):
+                        stop = True
+                        break
                     new_til = til.copy()
                     new_til[l] = tile_vec
                     new_til[0] = [new_rem[d] for d in dims]
@@ -479,6 +684,12 @@ def search_blocking(
         for cost, til, odr, rem, _rvec in entries:
             active = tuple(d for d in dims if rem[d] > 1)
             cands = cands_for(active)
+            if (
+                budget is not None
+                and g_til
+                and evaluated + n_rows + len(cands) > budget
+            ):
+                break
             g_til.append(til)
             g_odr.append(odr)
             sizes.append(len(cands))

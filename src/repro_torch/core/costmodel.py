@@ -25,8 +25,8 @@ definition).
 
 The port's copy of the reference's ``core/costmodel.py``, held to the
 reference's search results bit for bit by ``tests/test_torch_core.py``.  The
-hierarchy sweeps, ABFT and decode-gather pricing of the reference's module
-wait for the port's DSE and serve planner.
+hierarchy sweeps (``evaluate_hierarchies``) serve the port's DSE, the
+ABFT and decode-gather pricing its serve planner.
 
 Schedules whose counts could overflow int64 (or lose float exactness past
 2**53 in the hop accumulation) raise :class:`BatchOverflowError` at
@@ -43,7 +43,7 @@ import numpy as np
 
 from repro_torch.core.energy import CostTable
 from repro_torch.core.loopnest import LoopNest
-from repro_torch.core.schedule import ArraySpec, MemLevel
+from repro_torch.core.schedule import ArraySpec, MemLevel, Schedule
 
 # Rows per internal chunk: bounds peak memory of the (n, L*D) intermediates.
 _CHUNK = 32768
@@ -73,11 +73,37 @@ class BatchReport:
     macs: int
 
 
+@dataclasses.dataclass(frozen=True)
+class HierarchySweepReport:
+    """One counts pass priced under H cost tables (the DSE inner product).
+
+    Access counts depend only on (tiling, order, spatial, per-PE structure)
+    — never on level capacities — so a whole iso-structure family of memory
+    hierarchies shares the count tensors and differs only in the final
+    ``level_totals @ level_pj`` contraction.  ``energy_pj[h, i]`` is
+    candidate i priced under hierarchy h's cost table, bit-identical to
+    ``evaluate()`` under that table.
+    """
+
+    energy_pj: np.ndarray         # (H, n) float64
+    cycles: np.ndarray            # (H, n) float64
+    # Count-side fields are hierarchy-independent for shared (n, L, D)
+    # candidates: (n, L) / (n,).  With per-hierarchy 4-D candidate blocks
+    # they gain a leading axis: (H, n, L) / (H, n).
+    level_totals: np.ndarray      # int64
+    footprint_words: np.ndarray   # int64 (un-doubled words, see
+    #                               footprint_words(): caller applies
+    #                               word_bytes and double-buffer factors)
+    utilization: np.ndarray       # float64
+    macs: int
+
+
 class BatchedCostModel:
     """Prices batches of candidate schedules sharing one (nest, hw, dataflow).
 
     Parameters mirror `Schedule` minus the per-candidate tiling/order, which
-    arrive as arrays at evaluation time.
+    arrive as arrays at evaluation time.  `pack()` converts `Schedule`
+    objects to those arrays for differential testing.
     """
 
     def __init__(
@@ -198,6 +224,19 @@ class BatchedCostModel:
                 f"counts for nest {self.nest.name} may overflow the batched "
                 "engine; use the scalar oracle"
             )
+
+    def pack(
+        self, schedules: Sequence[Schedule]
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Convert Schedule objects to (tilings, orders) arrays."""
+        n = len(schedules)
+        til = np.empty((n, self.L, self.D), dtype=np.int64)
+        orders = np.empty((n, self.L, self.D), dtype=np.int64)
+        for i, s in enumerate(schedules):
+            t_m, o_m = s.as_arrays()
+            til[i] = t_m
+            orders[i] = o_m
+        return til, orders
 
     # ------------------------------------------------------------- pricing --
 
@@ -347,6 +386,142 @@ class BatchedCostModel:
             macs=self.macs,
         )
 
+    # --------------------------------------------------- hierarchy sweeps --
+
+    def footprint_words(self, tilings: np.ndarray) -> np.ndarray:
+        """Vectorized Schedule.footprint_bytes, in raw words: (n, L) sums of
+        per-tensor tile elements at each level (spatial factors folded in at
+        and above the array boundary).  Callers apply ``word_bytes`` and each
+        hierarchy's double-buffer factor — those are the only parts of the
+        footprint that vary across an iso-structure hierarchy family."""
+        tilings = np.asarray(tilings, dtype=np.int64)
+        n = tilings.shape[0]
+        words = np.zeros((n, self.L), dtype=np.int64)
+        cum = np.cumprod(tilings, axis=1)
+        for l in range(self.L):
+            tile = cum[:, l, :]
+            if l >= self.boundary:
+                tile = tile * self.sp
+            for t_i in range(self.T):
+                words[:, l] += self._elems(t_i, tile)
+        return words
+
+    def evaluate_hierarchies(
+        self,
+        tilings: np.ndarray,
+        orders: np.ndarray,
+        tables: Sequence[CostTable],
+        bandwidths: np.ndarray | None = None,
+    ) -> HierarchySweepReport:
+        """Price one candidate frontier under H hierarchies' cost tables.
+
+        ``tilings``/``orders`` are the usual (n, L, D) arrays — or 4-D
+        (H, n, L, D) when each hierarchy brings its own candidates, in which
+        case counts are computed per hierarchy block.  ``bandwidths`` is an
+        optional (H, L) words-per-cycle array for the roofline (defaults to
+        the constructor levels' bandwidths for every hierarchy).
+        """
+        tilings = np.asarray(tilings, dtype=np.int64)
+        orders = np.asarray(orders, dtype=np.int64)
+        H = len(tables)
+        for tbl in tables:
+            if len(tbl.level_pj) != self.L:
+                raise ValueError("cost table does not match hierarchy depth")
+        if tilings.ndim == 4:
+            if tilings.shape[0] != H:
+                raise ValueError("4-D tilings must have one block per table")
+            parts = [
+                self.evaluate_hierarchies(
+                    tilings[h], orders[h], [tables[h]],
+                    None if bandwidths is None else bandwidths[h : h + 1],
+                )
+                for h in range(H)
+            ]
+            # count-side fields gain a leading hierarchy axis here — (H, n, L)
+            # and (H, n) — because each block has its own candidates, unlike
+            # the shared-candidate 3-D path where they are (n, L)/(n,)
+            return HierarchySweepReport(
+                energy_pj=np.concatenate([p.energy_pj for p in parts]),
+                cycles=np.concatenate([p.cycles for p in parts]),
+                level_totals=np.stack([p.level_totals for p in parts]),
+                footprint_words=np.stack(
+                    [p.footprint_words for p in parts]
+                ),
+                utilization=np.stack([p.utilization for p in parts]),
+                macs=self.macs,
+            )
+
+        n = tilings.shape[0]
+        if bandwidths is None:
+            bandwidths = np.tile(
+                [lvl.bandwidth_words_per_cycle for lvl in self.levels], (H, 1)
+            )
+        energy = np.empty((H, n))
+        cycles = np.empty((H, n))
+        level_totals = np.empty((n, self.L), dtype=np.int64)
+        util = np.empty(n)
+        for i in range(0, n, _CHUNK):
+            til, odr = tilings[i : i + _CHUNK], orders[i : i + _CHUNK]
+            reads, writes, padded, suffix = self._counts(til, odr)
+            hops = self._hops(reads, writes)
+            lt = reads.sum(axis=2) + writes.sum(axis=2)  # (chunk, L)
+            hsum = np.zeros(til.shape[0])
+            for t_i in range(self.T):
+                hsum = hsum + hops[:, t_i]
+            trips = suffix[:, 0].astype(np.float64)
+            sl = slice(i, i + til.shape[0])
+            level_totals[sl] = lt
+            util[sl] = (self.used_pes / self.array.num_pes) * (
+                self.macs / padded.prod(axis=1)
+            )
+            # same accumulation order as the scalar evaluate() under each
+            # table, so per-hierarchy energies stay bit-identical
+            for h, tbl in enumerate(tables):
+                tot = np.zeros(til.shape[0])
+                for l in range(self.L):
+                    tot = tot + lt[:, l] * tbl.level_pj[l]
+                energy[h, sl] = tot + (
+                    self.macs * tbl.mac_pj + hsum * tbl.hop_pj
+                )
+                cyc = trips.copy()
+                for l in range(self.L):
+                    bw = float(bandwidths[h, l])
+                    if math.isfinite(bw):
+                        cyc = np.maximum(cyc, lt[:, l] / bw)
+                cycles[h, sl] = cyc
+        return HierarchySweepReport(
+            energy_pj=energy,
+            cycles=cycles,
+            level_totals=level_totals,
+            footprint_words=self.footprint_words(tilings),
+            utilization=util,
+            macs=self.macs,
+        )
+
+    def abft_energy_pj(self, tilings: np.ndarray) -> np.ndarray:
+        """Per-candidate ABFT checksum surcharge (energy.abft_matmul_cost)
+        for a matmul nest: each candidate's row-block is the M footprint
+        it keeps resident below the outermost level, which is exactly the
+        ``bm`` matmul_pallas_abft emits one checksum row per.  Lets the
+        blocking sweep report checked-matmul energy as base + surcharge
+        without re-counting the O(M·K·N) product."""
+        dims = {d: i for i, d in enumerate(self.dims)}
+        if not {"M", "N", "K"} <= set(dims):
+            raise ValueError(
+                f"abft pricing needs a matmul nest with M/N/K dims, got "
+                f"{self.dims}"
+            )
+        tilings = np.asarray(tilings, dtype=np.int64)
+        M = self.nest.bounds["M"]
+        N = self.nest.bounds["N"]
+        K = self.nest.bounds["K"]
+        t_outer = np.maximum(tilings[:, -1, dims["M"]], 1)
+        bm = np.maximum(-(-M // t_outer), 1)
+        nrb = -(-M // bm)
+        ops = (nrb * K * N) + (M * N + M * K + nrb * N)
+        words = M * K + 2 * nrb * N
+        return ops * self.table.mac_pj + words * self.pj[-1]
+
     def level_energy(
         self, tilings: np.ndarray, orders: np.ndarray, level: int
     ) -> np.ndarray:
@@ -369,3 +544,36 @@ class BatchedCostModel:
                 e = e + hsum * self.table.hop_pj
             out[i : i + len(e)] = e
         return out
+
+
+# ----------------------------------------------- serve decode-step pricing --
+# Vectorized twin of energy.attention_gather_cost: one call prices the
+# decode-attention gather for a whole grid of (block_size, kv_splits, ctx)
+# candidates — the serve-config planner (core/serveplan.py) sweeps hundreds
+# of knob combinations, and this keeps that sweep a single numpy pass the
+# same way evaluate_hierarchies keeps the allocation sweep batched.
+# tests/test_torch_serveplan.py holds both to the reference on random cases.
+
+
+def attention_gather_words(
+    ctx_len: np.ndarray,
+    block_size: np.ndarray,
+    *,
+    kv_heads: int,
+    head_dim: int,
+    kv_splits: np.ndarray | None = None,
+) -> np.ndarray:
+    """Per-row per-layer decode-attention words for broadcastable arrays of
+    live context lengths, block sizes and split counts (see
+    energy.attention_gather_cost for the count definitions)."""
+    ctx = np.asarray(ctx_len, dtype=np.int64)
+    bs = np.asarray(block_size, dtype=np.int64)
+    if (ctx < 1).any() or (bs < 1).any():
+        raise ValueError("ctx_len and block_size must be >= 1")
+    blocks = -(-ctx // bs)
+    splits = blocks if kv_splits is None else np.maximum(
+        np.asarray(kv_splits, dtype=np.int64), 1
+    )
+    kv_words = 2 * blocks * bs * kv_heads * head_dim
+    partial_words = 2 * splits * kv_heads * (head_dim + 2)
+    return kv_words + blocks + partial_words

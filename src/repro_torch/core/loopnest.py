@@ -18,8 +18,7 @@ same nest with some bounds set to 1 (paper §3) or with renamed dims, so a
 single IR covers the paper's CONV/FC benchmarks *and* the LM-framework ops
 that the TPU mapper schedules.
 
-The port's copy of the reference's ``core/loopnest.py``, without the
-depthwise nest (MobileNet waits for the port's optimizer).
+The port's copy of the reference's ``core/loopnest.py``.
 """
 
 from __future__ import annotations
@@ -175,6 +174,30 @@ def matmul_nest(name: str, *, M: int, N: int, K: int) -> LoopNest:
         bounds=bounds,
         tensors=(A, Bt, O),
         reduction_dims=frozenset({"K"}),
+    )
+
+
+def depthwise_nest(
+    name: str, *, B: int, C: int, X: int, Y: int, FX: int, FY: int, stride: int = 1
+) -> LoopNest:
+    """Depthwise CONV (MobileNet): one filter per channel, no C-reduction.
+
+    Modeled as the 7-loop nest with the channel dim acting as K (parallel) and
+    C-loop = 1: O[b,k,x,y] += I[b,k,x+fx,y+fy] * W[k,fx,fy].
+    """
+    bounds = {"B": B, "K": C, "Y": Y, "X": X, "FY": FY, "FX": FX}
+    I = TensorRef(
+        "I",
+        dims=("B", "K", "X", "Y", "FX", "FY"),
+        coupled={"X": ("FX", stride), "Y": ("FY", stride)},
+    )
+    W = TensorRef("W", dims=("K", "FX", "FY"))
+    O = TensorRef("O", dims=("B", "K", "X", "Y"), output=True)
+    return LoopNest(
+        name=name,
+        bounds=bounds,
+        tensors=(I, W, O),
+        reduction_dims=frozenset({"FX", "FY"}),
     )
 
 

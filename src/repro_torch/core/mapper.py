@@ -6,8 +6,9 @@ The port's copy of the HBM<->VMEM part of the reference's
 tile to the TPU's alignment (8 sublanes x 128 lanes, 128x128 MXU), exactly
 as the reference does.  The port's contiguous decode split takes its KV
 block from it (``kernels/flash_attention/ops.py``), as the reference's
-does.  A Hopper-aligned GEMM tile search and the mesh-scale pricing wait
-for the port's GEMM tuning and its parallel layer.
+does, and the serve planner's TPU description prices its decode GEMMs with
+it (``MatmulTiles.hbm_words``).  The mesh-scale pricing waits for the
+port's parallel layer.
 """
 
 from __future__ import annotations
@@ -54,6 +55,17 @@ class MatmulTiles:
             2 * (self.bm * self.bk + self.bk * self.bn) * dtype_bytes
             + self.bm * self.bn * 4
         )
+
+    def hbm_words(self, M: int, N: int, K: int) -> int:
+        """HBM<->VMEM traffic (words) of an (M, N, K) matmul blocked at
+        these tiles: A streams once per N-tile pass, B once per M-tile
+        pass, C is written once (the K loop accumulates in VMEM).  With a
+        serving-sized M <= bm the weight matrix B crosses HBM exactly once
+        — the quantity the decode-step planner (core/serveplan.py) prices.
+        """
+        n_m = -(-M // self.bm)
+        n_n = -(-N // self.bn)
+        return M * K * n_n + K * N * n_m + M * N
 
 
 # ------------------------------------------------------ tile-choice cache --

@@ -12,8 +12,7 @@ to (paper §4, Table 2):
 
 A `Schedule` fully determines the access counts at every memory level (see
 reuse.py) and therefore energy/performance under a cost table (energy.py).
-(The reference's `halide.py` front-end lowers to this; the port has no
-copy of it yet.)
+`halide.py` provides the paper-facing fluent front-end that lowers to this.
 
 Level convention: index 0 is the innermost (RF next to the MAC), the last
 level is off-chip DRAM/HBM.  The PE array sits between level 0 and level 1:
@@ -24,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
+from typing import Mapping, Sequence
 
 from repro_torch.core.loopnest import LoopNest
 
@@ -180,3 +179,70 @@ class Schedule:
             for d in self.order[l]:
                 out.append((d, self.tiling[d][l]))
         return out
+
+    def as_arrays(self) -> tuple[list[list[int]], list[list[int]]]:
+        """(tiling, order-index) matrices for the batched cost engine.
+
+        Both are L x D nested lists, level 0 first; order rows hold indices
+        into `nest.dims`, innermost-first.  See costmodel.BatchedCostModel.
+        """
+        dims = self.nest.dims
+        idx = {d: i for i, d in enumerate(dims)}
+        til = [[self.tiling[d][l] for d in dims] for l in range(len(self.levels))]
+        orders = [[idx[d] for d in self.order[l]] for l in range(len(self.levels))]
+        return til, orders
+
+    def describe(self) -> str:
+        """Human-readable schedule, paper-style."""
+        lines = [f"nest {self.nest.name}: bounds {dict(self.nest.bounds)}"]
+        for a, assigns in enumerate(self.spatial):
+            if assigns:
+                lines.append(
+                    f"  array dim {a}: "
+                    + " ".join(f"{d}:{f}" for d, f in assigns)
+                )
+        for l in range(len(self.levels) - 1, -1, -1):
+            active = [
+                f"{d}:{self.tiling[d][l]}"
+                for d in reversed(self.order[l])
+                if self.tiling[d][l] > 1
+            ]
+            lines.append(f"  {self.levels[l].name}: " + (" ".join(active) or "-"))
+        return "\n".join(lines)
+
+
+def uniform_order(nest: LoopNest, order: Sequence[str], num_levels: int) -> tuple:
+    return tuple(tuple(order) for _ in range(num_levels))
+
+
+def flat_schedule(
+    nest: LoopNest,
+    levels: Sequence[MemLevel],
+    array: ArraySpec | None = None,
+    spatial: Sequence[Sequence[tuple[str, int]]] | None = None,
+    order: Sequence[str] | None = None,
+) -> Schedule:
+    """Degenerate schedule: everything at the top level (no blocking).
+
+    Spatial factors, if given, are peeled off the top-level tiling.
+    """
+    array = array or ArraySpec(dims=(1,))
+    spatial = tuple(tuple(s) for s in (spatial or [()] * len(array.dims)))
+    L = len(levels)
+    tiling: dict[str, tuple[int, ...]] = {}
+    sp_factor = {d: 1 for d in nest.dims}
+    for assigns in spatial:
+        for d, f in assigns:
+            sp_factor[d] *= f
+    for d in nest.dims:
+        top = math.ceil(nest.bounds[d] / sp_factor[d])
+        tiling[d] = tuple([1] * (L - 1) + [top])
+    o = tuple(order or nest.dims)
+    return Schedule(
+        nest=nest,
+        levels=tuple(levels),
+        tiling=tiling,
+        order=uniform_order(nest, o, L),
+        array=array,
+        spatial=spatial,
+    )

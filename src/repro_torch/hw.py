@@ -21,6 +21,10 @@ HBM_BYTES_PER_S = 3.35e12           # HBM3
 HBM_BYTES = 80 * 1024**3
 BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor-core peak
 FP32_FLOPS_PER_S = 66.9e12          # fp32 on the CUDA cores (no tensor cores)
+# The SM clock the data sheet's peaks assume: 989 TFLOP/s of dense bf16 is
+# 132 SMs x 4 tensor cores x 1024 flops a clock x 1.83 GHz.  It sets only
+# the unit of a MemLevel's words per cycle (the serve planner's roofline).
+CLOCK_HZ = 1.83e9
 MMA_ALIGN = 16                      # channel alignment of the fp32 conv body's tiles
 
 # Shared memory one block of the fp32 conv body may use: half of an SM's,

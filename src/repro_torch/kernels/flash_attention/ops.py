@@ -34,7 +34,8 @@ def _pick_decode_bk(S: int) -> int:
     jnp twin (``repro/kernels/flash_attention/ops.py:137-158``): there the
     search's KV tile is capped at 64 and floored at 8 before it steps down
     to a divisor, and a TPU-aligned tile is at least 128 wide, so the cap
-    always wins.  (The Hopper tile search is ROADMAP A6c.)"""
+    always wins.  The serve planner (``ServeConfig.autotune``) sets the
+    split explicitly instead (``KVConfig.decode_block``)."""
     b = max(1, min(64, S))
     while S % b:
         b -= 1

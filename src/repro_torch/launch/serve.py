@@ -1,12 +1,13 @@
 """Serving launcher on the port's continuous-batching engine; port of
-``repro/launch/serve.py`` without the flags of the unported autotuner
-(``--autotune``, ``--concurrency``: ROADMAP A6c).
+``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --max-len 4096
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --autotune \
+        --concurrency 16 --max-len 1024 --matmul pallas
 
 ``--arch`` takes every name of ``configs/registry.py`` (and its
 ``-smoke`` variant).  The engine serves decoder-only models, so
@@ -20,9 +21,15 @@ same slot count) for an A/B on the spot.  ``--snapshot-dir D`` makes the
 run crash-consistent (snapshots plus a write-ahead journal under D); after a
 crash, the same command with ``--resume`` restores the engine from D,
 prints the recovery report and finishes the requests in flight (the
-weights come from the same seeded generator, so they are the same).  Runs on the card (``--device
-cuda``, the default; it fails when no card is visible) or, asked
-explicitly, on the CPU with the plain versions.
+weights come from the same seeded generator, so they are the same).
+``--autotune`` plans the serving knobs (slots, KV layout, block size, pool
+size, prefill chunk, token budget) with the serve planner
+(``core/serveplan.py``, priced for the H100), prints an ``[autotune]`` line
+and serves the plan; with ``--abft`` it plans the paged layout only, which
+the SDC defense needs.  Plans persist in ``REPRO_TORCH_SERVE_PLAN_CACHE``
+(default ``build/repro_torch/serve_plans.json``).  Runs on the card
+(``--device cuda``, the default; it fails when no card is visible) or,
+asked explicitly, on the CPU with the plain versions.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 
 from repro_torch.arch.model_zoo import build
 from repro_torch.configs.registry import ARCHS, get
+from repro_torch.core.serveplan import ServePlanSpace, ServeWorkload
 from repro_torch.serve import recovery
 from repro_torch.serve.engine import (
     DurabilityConfig,
@@ -142,13 +150,28 @@ def main(argv=None):
                          "recovery report, and finish the in-flight requests")
     ap.add_argument("--static", action="store_true",
                     help="run the padded static-batch baseline instead")
+    ap.add_argument("--autotune", action="store_true",
+                    help="plan the serving knobs with the DSE planner "
+                         "(core/serveplan.py, priced for the H100): sweep "
+                         "slots / kv layout / block_size / num_blocks / "
+                         "prefill_chunk / token_budget under an iso-HBM KV "
+                         "budget, take the Pareto winner, and serve with it.  "
+                         "Overrides --slots/--kv-layout/--block-size/"
+                         "--num-blocks/--prefill-chunk/--token-budget; kernel "
+                         "and durability flags still apply.  Winning plans "
+                         "persist in REPRO_TORCH_SERVE_PLAN_CACHE")
+    ap.add_argument("--concurrency", type=int, default=None,
+                    help="autotune: offered concurrency to plan for "
+                         "(default: --requests)")
     args = ap.parse_args(argv)
     if args.resume and not args.snapshot_dir:
         ap.error("--resume requires --snapshot-dir")
+    if args.autotune and args.static:
+        ap.error("--autotune plans the continuous engine (drop --static)")
     if args.static and (args.snapshot_dir or args.resume):
         ap.error("--snapshot-dir/--resume need the continuous engine "
                  "(drop --static)")
-    if args.abft != "off" and args.kv_layout != "paged":
+    if args.abft != "off" and args.kv_layout != "paged" and not args.autotune:
         ap.error("--abft localizes corruption through the paged pool's "
                  "per-block fingerprints (add --kv-layout paged)")
     if args.static and args.kv_layout != "contiguous":
@@ -165,26 +188,55 @@ def main(argv=None):
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = build(cfg).init(gen, device)
-    scfg = ServeConfig(
-        max_len=args.max_len, temperature=args.temperature, seed=args.seed,
-        scheduler=SchedulerConfig(
-            batch=args.slots, prefill_bucket=args.prefill_bucket,
-            prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
-            max_waiting=args.max_waiting, stall_patience=args.stall_patience,
-        ),
-        kv=KVConfig(
-            layout=args.kv_layout, block_size=args.block_size,
-            num_blocks=args.num_blocks,
-            prefix_sharing=not args.no_prefix_sharing,
-        ),
-        kernel=KernelConfig(
-            matmul=args.matmul, attention=args.attention,
-            abft=args.abft, scrub_every=args.scrub_every,
-        ),
-        durability=DurabilityConfig(
-            snapshot_dir=args.snapshot_dir, snapshot_every=args.snapshot_every,
-        ),
+    kernel = KernelConfig(
+        matmul=args.matmul, attention=args.attention,
+        abft=args.abft, scrub_every=args.scrub_every,
     )
+    durability = DurabilityConfig(
+        snapshot_dir=args.snapshot_dir, snapshot_every=args.snapshot_every,
+    )
+    if args.autotune:
+        scfg = ServeConfig.autotune(
+            cfg,
+            max_len=args.max_len,
+            workload=ServeWorkload(
+                concurrency=args.concurrency or args.requests,
+                prompt_len=16,
+                decode_len=max(2, args.new_tokens),
+            ),
+            # the SDC defense needs the paged pool
+            space=ServePlanSpace(layouts=("paged",)) if args.abft != "off" else None,
+            temperature=args.temperature,
+            seed=args.seed,
+            kernel=kernel,
+            durability=durability,
+        )
+        plan = scfg.autotune_plan
+        k, pred = plan.knobs, plan.predicted
+        print(
+            f"[autotune] {plan.source}: slots={k.slots} "
+            f"kv={k.kv_layout}/bs={k.block_size}/nb={k.num_blocks} "
+            f"chunk={k.prefill_chunk} budget={k.token_budget} "
+            f"(predicted {pred.get('tokens_per_s', 0):.0f} tok/s over "
+            f"{pred.get('swept_points', '?')} swept points, "
+            f"frontier {plan.frontier_size})"
+        )
+    else:
+        scfg = ServeConfig(
+            max_len=args.max_len, temperature=args.temperature, seed=args.seed,
+            scheduler=SchedulerConfig(
+                batch=args.slots, prefill_bucket=args.prefill_bucket,
+                prefill_chunk=args.prefill_chunk, token_budget=args.token_budget,
+                max_waiting=args.max_waiting, stall_patience=args.stall_patience,
+            ),
+            kv=KVConfig(
+                layout=args.kv_layout, block_size=args.block_size,
+                num_blocks=args.num_blocks,
+                prefix_sharing=not args.no_prefix_sharing,
+            ),
+            kernel=kernel,
+            durability=durability,
+        )
     mode = "static" if args.static else "resume" if args.resume else "continuous"
     if args.resume:
         eng, report = recovery.restore_engine(cfg, params, scfg, device=device)

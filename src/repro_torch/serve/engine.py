@@ -40,12 +40,13 @@ stall watchdog), the greedy sampler, the NaN guard, a temperature sampler
 of the port's own, the per-block KV checksum audit (``kv_checksum``), the
 silent-data-corruption (SDC) defense (``KernelConfig.abft``: checksummed
 decode GEMMs, a sampled attention fingerprint, a periodic weight scrub,
-and detect -> retry -> quarantine, :meth:`Engine._sdc_recover`), and the
-static-batch baseline :class:`StaticEngine`, and crash recovery
+and detect -> retry -> quarantine, :meth:`Engine._sdc_recover`), the
+static-batch baseline :class:`StaticEngine`, crash recovery
 (``DurabilityConfig.snapshot_dir``: a write-ahead journal and periodic
-snapshots, :mod:`repro_torch.serve.recovery`).  Autotuning is not ported
-(ROADMAP A6c).  The reference's one-shot substrate fallback is not ported
-either: a kernel failure raises.
+snapshots, :mod:`repro_torch.serve.recovery`), and autotuning
+(:meth:`ServeConfig.autotune`: the serve planner of ``core/serveplan.py``,
+priced for the H100).  The reference's one-shot substrate fallback is not
+ported: a kernel failure raises.
 
 Replay and the lane are bitwise only if a prefill row's bits do not
 depend on the admission's shape.  Admission therefore prefills with
@@ -344,6 +345,91 @@ class ServeConfig:
         if self.kv.num_blocks is not None:
             return self.kv.num_blocks
         return self.scheduler.batch * self.max_len // self.kv.block_size + 1  # + sink
+
+    @classmethod
+    def from_plan_knobs(
+        cls,
+        knobs,
+        *,
+        max_len: int,
+        temperature: float = 0.0,
+        seed: int = 0,
+        kernel: KernelConfig | None = None,
+        durability: DurabilityConfig | None = None,
+    ) -> "ServeConfig":
+        """Map planner knobs (core/serveplan.ServeKnobs) onto the nested
+        sub-configs.  Under the contiguous layout the planner's block_size
+        pins the decode kernel's online-softmax split (KVConfig.decode_block)
+        rather than a physical pool block."""
+        if knobs.kv_layout == "paged":
+            kv = KVConfig(
+                layout="paged", block_size=knobs.block_size,
+                num_blocks=knobs.num_blocks,
+            )
+        else:
+            kv = KVConfig(layout="contiguous", decode_block=knobs.block_size)
+        return cls(
+            max_len=max_len,
+            temperature=temperature,
+            seed=seed,
+            scheduler=SchedulerConfig(
+                batch=knobs.slots,
+                prefill_chunk=knobs.prefill_chunk,
+                token_budget=knobs.token_budget,
+            ),
+            kv=kv,
+            kernel=kernel or KernelConfig(),
+            durability=durability or DurabilityConfig(),
+        )
+
+    @classmethod
+    def autotune(
+        cls,
+        model_cfg: ModelConfig,
+        *,
+        max_len: int = 256,
+        workload=None,
+        hardware=None,
+        space=None,
+        kv_budget_tokens: int | None = None,
+        calibration=None,
+        cache: bool | str = True,
+        temperature: float = 0.0,
+        seed: int = 0,
+        kernel: KernelConfig | None = None,
+        durability: DurabilityConfig | None = None,
+    ) -> "ServeConfig":
+        """Build a ServeConfig from the DSE planner (core/serveplan.py):
+        sweep the joint (slots, layout, block_size, num_blocks,
+        prefill_chunk, token_budget) space under an iso-HBM KV budget, priced
+        for the H100 unless ``hardware`` says otherwise, and map the winning
+        knobs onto the nested sub-configs.  The plan itself is attached as
+        ``cfg.autotune_plan`` for provenance; winners persist in the
+        REPRO_TORCH_SERVE_PLAN_CACHE store, so repeat constructions are a
+        cache hit.  A space with no feasible point raises.  Kernel and
+        durability choices are not planned: they pass through unchanged."""
+        from repro_torch.core import serveplan  # numpy-only; lazy
+
+        plan = serveplan.plan_serve(
+            model_cfg,
+            max_len=max_len,
+            workload=workload,
+            hardware=hardware,
+            space=space,
+            kv_budget_tokens=kv_budget_tokens,
+            calibration=calibration,
+            cache=cache,
+        )
+        cfg = cls.from_plan_knobs(
+            plan.knobs,
+            max_len=max_len,
+            temperature=temperature,
+            seed=seed,
+            kernel=kernel,
+            durability=durability,
+        )
+        cfg.autotune_plan = plan
+        return cfg
 
 
 @dataclasses.dataclass

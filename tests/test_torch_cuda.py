@@ -70,7 +70,9 @@ smoke config's size under ``matmul="pallas"``: the chunked-prefill lane
 gives monolithic admission's tokens, a preempted request replays to its
 uninterrupted tokens, and an engine killed mid-run and restored from its
 snapshot and journal finishes as the uninterrupted run, all bitwise at
-temperature 0.8.
+temperature 0.8; an autotuned engine (``ServeConfig.autotune``) runs the
+kernels of its planned layout and gives the greedy tokens of the same
+knobs built by hand.
 """
 
 import ctypes
@@ -1363,6 +1365,40 @@ def test_engine_on_the_card_lane_equals_monolithic(cuda, layout):
         outs[(chunk, budget)] = [o.tolist() for o in res]
     for key, toks in outs.items():
         assert toks == outs[(0, None)], f"lane {key} differs from monolithic admission"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layouts", [("contiguous",), ("paged",)])
+def test_engine_on_the_card_autotuned_equals_hand_built(cuda, layouts, tmp_path):
+    """``ServeConfig.autotune`` (priced for the H100, over one layout)
+    serves through the decode kernel of its layout and the GEMM, and gives
+    the greedy tokens of the same knobs built by hand."""
+    from repro_torch.core import serveplan
+
+    cfg = get("smollm-360m-smoke")
+    params = build(cfg).init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    spec = [(5, 6), (37, 9), (3, 4), (23, 5), (58, 4), (12, 7)]
+    kernel = te.KernelConfig(matmul="pallas")
+    scfg = te.ServeConfig.autotune(
+        cfg, max_len=64, workload=serveplan.ServeWorkload(3, 24, 6),
+        space=serveplan.ServePlanSpace(layouts=layouts), kernel=kernel,
+        cache=str(tmp_path / "plans.json"))
+    k = scfg.autotune_plan.knobs
+    assert k.kv_layout == layouts[0]
+    kv = (te.KVConfig(layout="paged", block_size=k.block_size, num_blocks=k.num_blocks)
+          if k.kv_layout == "paged" else te.KVConfig(decode_block=k.block_size))
+    hand = te.ServeConfig(max_len=64, kv=kv, kernel=kernel, scheduler=te.SchedulerConfig(
+        batch=k.slots, prefill_chunk=k.prefill_chunk, token_budget=k.token_budget))
+    toks = []
+    for c in (scfg, hand):
+        for w in (dec.flash_decode_cuda, dec.flash_decode_paged_cuda, matmul_cuda):
+            w.launches = 0
+        res = te.Engine(cfg, params, c).run(_smoke_requests(cfg, spec, 5))
+        assert [o.status for o in res] == [te.RequestStatus.FINISHED] * len(spec)
+        kern = dec.flash_decode_paged_cuda if k.kv_layout == "paged" else dec.flash_decode_cuda
+        assert kern.launches > 0 and matmul_cuda.launches > 0
+        toks.append([o.tolist() for o in res])
+    assert toks[0] == toks[1]
 
 
 @pytest.mark.cuda
