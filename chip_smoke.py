@@ -13,6 +13,7 @@
     python3 chip_smoke.py --recover   # crash recovery at full width (phase 11)
     python3 chip_smoke.py --zoo       # the rest of the model zoo at full width (phase 12)
     python3 chip_smoke.py --autotune  # the serve planner on the card (phase 13)
+    python3 chip_smoke.py --train     # training at full width (phase 14)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -43,7 +44,8 @@ result.  Phases, any failure of which exits non-zero:
    prefix; all 16 until the script's time needed the cut) with
    ``matmul="pallas"``, ``abft="checksum"`` must serve the ABFT-off tokens
    with no detection, through the checksum GEMM, with its step profile
-   beside ABFT off; (b) the weight and KV-pool
+   (3 checked steps, 8 until the script's time needed the cut) beside
+   ABFT off; (b) the weight and KV-pool
    fingerprints must repeat bit for bit 100 times; (c) seeded SDC episodes
    in both modes (``max_len`` 256, 3 slots) must detect and retry every
    compute fault once, quarantine exactly the owner of every KV flip, and
@@ -265,7 +267,33 @@ result.  Phases, any failure of which exits non-zero:
    the same knobs, and a corrupted cache entry is searched again to the same
    knobs; (e) ``python -m repro_torch.launch.serve --arch smollm-360m
    --autotune --concurrency 16 --max-len 1024 --matmul pallas`` in a
-   subprocess exits 0 and prints its ``[autotune]`` line.
+   subprocess exits 0 and prints its ``[autotune]`` line;
+14. training (``train/``, ``Model.loss``, ``launch/train.py``): (c) the
+   scan at (8, 512, 2560) and WKV-6 at (8, 32, 512, 64) under autograd:
+   the forward bitwise the direct kernel call (the scan bitwise its plain
+   version, WKV-6 within 1e-5 of scale), the gradients for a seeded
+   upstream gradient within 1e-5 (scan) and 1e-4 (WKV-6) of each
+   gradient's scale of autograd through the plain version, and forward
+   plus backward timed on both paths; (a) smollm-360m at full width and
+   depth from a seeded init, ``train()`` for 20 steps at batch 8 x 512 in
+   2 microbatches (AdamW lr 3e-3, warmup 10): 20 finite losses, the mean
+   loss of 8 held-out batches lower after than before, every gradient
+   leaf of step 1 finite and non-zero; step wall p50/p95 (host clock, a
+   step ends in the loss's copy to the host), tokens/s, the card's busy
+   share of 3 profiled steps and the peak memory; (b) 6 steps with a
+   checkpoint every 3, resumed to step 8, against a straight 8-step run
+   (smollm-360m's widths, 8 of its layers, for the phase's time):
+   parameters within 5e-2 (the reference's bound; bitwise or not is
+   printed), ``save_async``'s host ms; (d) one training step each of
+   rwkv6-1.6b (4 of 24 layers), recurrentgemma-2b (one group and the
+   tail, 4 layers) and granite-moe-1b-a400m (12 layers) at published
+   widths, batch 2 x 256: every gradient finite and non-zero, WKV-6 and
+   the scan launched in the forward and the scan in the backward (counts
+   set to 0 just before), granite-moe's aux loss positive; (e) ``python
+   -m repro_torch.launch.train --arch smollm-360m --steps 4 --batch 8
+   --seq 512 --microbatches 2 --ckpt-dir DIR --ckpt-every 2`` in a
+   subprocess, run beside (b) and (d) (so (b)'s times share the host): exit
+   0, ``done``, ``step_00000004``.
 
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
@@ -287,7 +315,8 @@ grid, shared memory, bytes in flight), held equal to the kernel's own.
 ``--recur --baseline DIR`` also builds DIR's ``linear_scan.cu`` and
 ``wkv6.cu`` (the same C entry points, say the parent commit's) and times
 them beside this build's on the same inputs, in turns.  ``--zoo`` runs
-phase 1 and phase 12, whose JSON it prints last (no ``ok`` line).
+phase 1 and phase 12, whose JSON it prints last (no ``ok`` line), and
+``--train`` phase 1 and phase 14 the same way.
 """
 
 from __future__ import annotations
@@ -356,6 +385,10 @@ from repro_torch.kernels.linear_scan import ops as lsops  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm  # noqa: E402
 from repro_torch.kernels.matmul import ops as mmops  # noqa: E402
 from repro_torch.serve import chaos, kvcache, recovery  # noqa: E402
+from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, batch_at  # noqa: E402
+from repro_torch.train import optim as topt  # noqa: E402
+from repro_torch.train.loop import TrainConfig, accumulate, make_train_step, train  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     TERMINAL_STATUSES, DurabilityConfig, Engine, KernelConfig, KVConfig, ReplayDivergedError,
     Request, RequestStatus, SchedulerConfig, SDCUnlocalizedError, ServeConfig, StaticEngine,
@@ -421,16 +454,17 @@ def card_line() -> str:
 _flush_buf = None
 
 
-def time_samples(fn, iters: int = 20) -> list[float]:
-    """Device time in ms of ``fn`` in each of ``iters`` launches, each after
-    the L2 cache was overwritten (the serve path finds its weights and KV
-    cold: a decode step streams far more than 50 MB).  A spin kernel
-    before the start event keeps the card busy while the host enqueues
-    ``fn``, so the host's launch overhead stays out of the reading."""
+def time_samples(fn, iters: int = 20, warmup: int = 2) -> list[float]:
+    """Device time in ms of ``fn`` in each of ``iters`` launches after
+    ``warmup`` untimed ones, each after the L2 cache was overwritten (the
+    serve path finds its weights and KV cold: a decode step streams far
+    more than 50 MB).  A spin kernel before the start event keeps the card
+    busy while the host enqueues ``fn``, so the host's launch overhead
+    stays out of the reading."""
     global _flush_buf
     if _flush_buf is None:
         _flush_buf = torch.empty(2 * L2_BYTES, dtype=torch.uint8, device=DEV)
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     out = []
     for _ in range(iters):
@@ -446,9 +480,9 @@ def time_samples(fn, iters: int = 20) -> list[float]:
     return out
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     """Mean of :func:`time_samples`."""
-    return statistics.fmean(time_samples(fn, iters))
+    return statistics.fmean(time_samples(fn, iters, warmup))
 
 
 def median_ms(fn, iters: int = 20) -> float:
@@ -1137,6 +1171,7 @@ def profile_decode(cfg, params, reqs, steps: int = 8, layout: str = "contiguous"
 
 SDC_MAX_LEN, SDC_SLOTS = 256, 3
 SDC_REQUESTS = 8  # (a): the phase-3 requests served with ABFT, cut for time
+ABFT_PROFILE_STEPS = 3  # (a): checked decode steps timed and profiled, cut for time
 SDC_LAYERS = 8  # (c), (d): 8 of smollm-360m's 32 layers (see CRASH_LAYERS)
 SDC_MIXES = [(1, 1), (2, 1), (1, 2), (0, 1), (2, 0), (1, 1)]  # tests/test_sdc.py:175
 
@@ -1177,8 +1212,11 @@ def sdc_phase(cfg, params, reqs, off_run: dict, off_tokens: list, totals: dict) 
           f"{res['itl_p50_ms']:.2f}/{res['itl_p95_ms']:.2f} ms vs "
           f"{off_run['itl_p50_ms']:.2f}/{off_run['itl_p95_ms']:.2f} ms off", flush=True)
     out["serve_abft"] = res
+    # the checked step is about 1 s of host time and its profile about ten
+    # times the events: ABFT_PROFILE_STEPS of it, for the script's time
     out["profile"] = [profile_decode(cfg, params, reqs, layout="paged", abft_mode=m,
-                                     focus=(GEMM_KERNEL,)) for m in ("off", "checksum")]
+                                     focus=(GEMM_KERNEL,), steps=n)
+                      for m, n in (("off", 8), ("checksum", ABFT_PROFILE_STEPS))]
 
     print("-- (b) fingerprints repeat bit for bit", flush=True)
     w0 = abft.weight_sums(eng.params)
@@ -3775,6 +3813,364 @@ def check_decode_step(cfg, params, rows: int = 2, max_len: int = 64,
     return out
 
 
+# --------------------------------------------------------- training phase --
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 20, 8, 512, 2  # (a)
+TRAIN_HELD = 8            # (a): held-out batches, steps 10 000 on
+TRAIN_PROFILED = 3        # (a): steps under the profiler
+RESTART_AT, RESTART_TO, RESTART_EVERY = 6, 8, 3  # (b)
+RESTART_LAYERS = 8        # (b): smollm-360m's widths, 8 of its 32 layers (time)
+RESTART_TOL = 5e-2        # (b): the reference's tests/test_system.py bound
+SCAN_GRAD_SHAPE = (8, 512, 2560)   # (c): (B, T, D), recurrentgemma's width
+WKV_GRAD_SHAPE = (8, 32, 512, 64)  # (c): (B, H, T, D), rwkv6's heads
+SCAN_GRAD_TOL, WKV_GRAD_TOL = 1e-5, 1e-4  # (c): of each gradient's scale
+ONE_STEP_LAYERS = {"rwkv6-1.6b": 4, "recurrentgemma-2b": 4,
+                   "granite-moe-1b-a400m": ZOO_LAYERS["granite-moe-1b-a400m"]}  # (d)
+ONE_STEP_BATCH, ONE_STEP_SEQ = 2, 256  # (d): recurrentgemma's 256k vocabulary
+LAUNCH_STEPS, LAUNCH_EVERY = 4, 2      # (e)
+
+
+def _finite_grads(tag: str, grads: dict) -> dict:
+    """Fails unless every gradient leaf is a finite tensor of non-zero
+    norm; returns the norms by path."""
+    norms = {}
+    for key, g in ckpt._paths(grads):
+        if g is None or not bool(torch.isfinite(g).all()):
+            fail(f"{tag}: the gradient of {key} is {'None' if g is None else 'not finite'}")
+        norms[key] = float(g.float().norm())
+        if norms[key] == 0.0:
+            fail(f"{tag}: the gradient of {key} is zero")
+    return norms
+
+
+def busy_ms(prof) -> tuple[float, dict]:
+    """The union of the CUDA kernels' intervals in a profile (ms), and the
+    card time of the six kernels that take most of it.  Reads the raw
+    Kineto events: building ``prof.events()`` for a training step's
+    ~40,000 kernels takes seconds."""
+    from torch.autograd import DeviceType
+
+    kernels = [(e.name(), e.start_ns(), e.duration_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    busy, end = 0, float("-inf")
+    for s, e in sorted((s, s + d) for _, s, d in kernels):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name: dict[str, float] = {}
+    for name, _, d in kernels:
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + d / 1e6
+    return busy / 1e6, dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def train_full(card: str, stamp) -> dict:
+    """(a): smollm-360m at full width and depth, 20 steps of ``train()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get("smollm-360m")
+    model = build(cfg)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    ocfg = topt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(steps=TRAIN_STEPS, microbatches=TRAIN_MB, opt=ocfg)
+    held = [{k: torch.from_numpy(v).to(DEV) for k, v in batch_at(dcfg, 10_000 + i).items()}
+            for i in range(TRAIN_HELD)]
+
+    @torch.no_grad()
+    def held_out(params) -> float:
+        return statistics.fmean(float(model.loss(params, b["tokens"], b["labels"], remat=False))
+                                for b in held)
+
+    # the parameters train() starts from (its generator, its seed)
+    init = model.init(torch.Generator(device=DEV).manual_seed(0), DEV)
+    before = held_out(init)
+    b0 = {k: torch.from_numpy(v).to(DEV) for k, v in batch_at(dcfg, 0).items()}
+    mbs = zip(b0["tokens"].reshape(TRAIN_MB, -1, TRAIN_SEQ),
+              b0["labels"].reshape(TRAIN_MB, -1, TRAIN_SEQ))
+    loss0, grads0 = accumulate(lambda p, t, l: model.loss(p, t, l), init, mbs)
+    norms = _finite_grads("(a) step 1", grads0)
+    del init, grads0
+    stamp("(a) held-out loss at init and step 1's gradients done")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train(cfg, dcfg, tcfg, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"(a) smollm-360m: {len(losses)} losses, finite: {np.isfinite(losses).tolist()}")
+    stamp("(a) 20 steps done")
+    after = held_out(out["final_params"])
+    if not after < before:
+        fail(f"(a) smollm-360m: held-out loss did not fall: {before:.5f} -> {after:.5f}")
+    steady = out["step_times"][1:]
+    p50, p95 = (float(np.percentile(steady, q)) * 1e3 for q in (50, 95))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # three more steps from the trained parameters (a fresh optimizer
+    # state) under the profiler: the card's busy time a step, against the
+    # unprofiled steps' p50
+    params = out["final_params"]
+    state = topt.init_state(params)
+    step_fn = make_train_step(model, tcfg)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in batch_at(dcfg, 100 + i).items()}
+               for i in range(TRAIN_PROFILED)]
+    stamp("(a) held-out loss after training done")
+    # the card's activity alone: CPU operator events would triple what the
+    # profiler collects and reads back
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            float(step_fn(params, state, b)[2]["loss"])
+    stamp("(a) 3 profiled steps done")
+    busy, top = busy_ms(prof)
+    wall = p50 * TRAIN_PROFILED
+    res = dict(
+        config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, microbatches=TRAIN_MB, steps=TRAIN_STEPS, losses=losses,
+        first_loss=float(loss0), held_out_before=before, held_out_after=after,
+        first_step_ms=out["step_times"][0] * 1e3, step_p50_ms=p50, step_p95_ms=p95,
+        tokens_per_s=tokens / (p50 / 1e3), peak_mem_bytes=peak,
+        busy_ms_per_step=busy / TRAIN_PROFILED, busy_share=busy / wall,
+        top_kernels_ms_per_step={n: t / TRAIN_PROFILED for n, t in top.items()},
+        grad_norm_min=min(norms.values()), grad_leaves=len(norms), card=card,
+    )
+    print(f"(a) smollm-360m ({cfg.n_layers} layers, d_model {cfg.d_model}, bf16), "
+          f"{TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_MB} microbatches "
+          f"({card}): loss {losses[0]:.4f} -> {losses[-1]:.4f}; held-out ({TRAIN_HELD} "
+          f"batches) {before:.5f} -> {after:.5f}; step p50 {p50:.1f} ms p95 {p95:.1f} ms "
+          f"(first {res['first_step_ms']:.0f} ms), {res['tokens_per_s']:.0f} tokens/s; "
+          f"card busy {res['busy_ms_per_step']:.2f} ms a step of {TRAIN_PROFILED} profiled "
+          f"({100 * res['busy_share']:.1f}% of the p50); peak memory {peak / 2**30:.2f} GiB; "
+          f"step 1: {len(norms)} gradient leaves finite, smallest norm "
+          f"{res['grad_norm_min']:.3e}", flush=True)
+    for n, t in res["top_kernels_ms_per_step"].items():
+        print(f"  {t:.3f} ms/step  {n}")
+    return res
+
+
+def train_restart(card: str) -> dict:
+    """(b): 6 steps with a checkpoint every 3, resumed to step 8, against a
+    straight 8-step run (the same 8-step schedule in both), at smollm-360m's
+    widths and ``RESTART_LAYERS`` of its layers."""
+    cfg = dataclasses.replace(get("smollm-360m"), n_layers=RESTART_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    ocfg = topt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=RESTART_TO)
+    d = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    try:
+        tc = TrainConfig(steps=RESTART_AT, microbatches=TRAIN_MB, ckpt_every=RESTART_EVERY,
+                         ckpt_dir=d, opt=ocfg)
+        first = train(cfg, dcfg, tc, device=DEV)
+        t0 = time.perf_counter()
+        resumed = train(cfg, dcfg, dataclasses.replace(tc, steps=RESTART_TO), device=DEV)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    straight = train(cfg, dcfg, TrainConfig(steps=RESTART_TO, microbatches=TRAIN_MB, opt=ocfg),
+                     device=DEV)
+    pairs = list(zip(topt.tree_leaves(resumed["final_params"]),
+                     topt.tree_leaves(straight["final_params"])))
+    diff = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    if not diff <= RESTART_TOL:
+        fail(f"(b) restart: max parameter difference {diff:.3e} > {RESTART_TOL}")
+    res = dict(saved_steps=RESTART_AT // RESTART_EVERY, resumed_steps=len(resumed["losses"]),
+               max_param_diff=diff, bitwise=bitwise,
+               losses_equal=resumed["losses"] == straight["losses"][RESTART_AT:],
+               save_async_host_ms=[t * 1e3 for t in first["save_times"]],
+               resume_run_s=resume_s, card=card)
+    print(f"(b) restart ({RESTART_LAYERS} layers) at step {RESTART_AT} (checkpoints every "
+          f"{RESTART_EVERY}), resumed to "
+          f"{RESTART_TO}, against a straight {RESTART_TO}-step run: max parameter difference "
+          f"{diff:.3e} (bound {RESTART_TOL}), bitwise: {bitwise}; save_async host ms "
+          f"{', '.join(f'{t:.0f}' for t in res['save_async_host_ms'])}; restore and "
+          f"{RESTART_TO - RESTART_AT} steps {resume_s:.1f} s ({card})", flush=True)
+    return res
+
+
+def _fwd_bwd(fn, args, g):
+    """Forward, then the gradients of every input for upstream ``g``."""
+    ins = [a.detach().requires_grad_() for a in args]
+    outs = fn(*ins)
+    return outs, torch.autograd.grad(outs, ins, g)
+
+
+def train_kernels(results: dict) -> dict:
+    """(c): the scan and WKV-6 under autograd at training shapes: the
+    forward bitwise the direct kernel call (and, as phases 6-7 require,
+    the scan bitwise its plain version, WKV-6 within WKV_TOL), the
+    gradients against autograd through the plain version on the card,
+    forward-plus-backward times of both paths."""
+    g = torch.Generator(device=DEV).manual_seed(14)
+    B, T, D = SCAN_GRAD_SHAPE
+    a = torch.rand((B, T, D), generator=g, device=DEV) * 0.5 + 0.5
+    x, h0 = torch.randn((B, T, D), generator=g, device=DEV), torch.zeros((B, D), device=DEV)
+    up = (torch.randn((B, T, D), generator=g, device=DEV), torch.randn((B, D), generator=g,
+                                                                      device=DEV))
+    Bw, H, Tw, Dw = WKV_GRAD_SHAPE
+    wargs = wkv_inputs(Bw, H, Tw, g)
+    wup = (torch.randn((Bw, H, Tw, Dw), generator=g, device=DEV),
+           torch.randn((Bw, H, Dw, Dw), generator=g, device=DEV))
+    rows = {}
+    for name, fn, plain, args, upg, tol in (
+            ("linear_scan", lsops.linear_scan, ls.linear_scan_plain, (a, x, h0), up,
+             SCAN_GRAD_TOL),
+            ("wkv6", lsops.wkv6, ls.wkv6_plain, wargs, wup, WKV_GRAD_TOL)):
+        direct = WRAPPERS[name](*args)
+        before = WRAPPERS[name].launches
+        outs, grads = _fwd_bwd(fn, args, upg)
+        launched = WRAPPERS[name].launches - before
+        p_outs, p_grads = _fwd_bwd(plain, args, upg)
+        torch.cuda.synchronize()
+        if not all(torch.equal(o.detach(), d) for o, d in zip(outs, direct)):
+            fail(f"(c) {name}: the forward under autograd differs from the direct kernel call")
+        if name == "linear_scan":
+            fwd_err = max(float((o.detach() - p.detach()).abs().max())
+                          for o, p in zip(outs, p_outs))
+            if fwd_err != 0.0:
+                fail(f"(c) linear_scan: forward differs from the plain version ({fwd_err:.3e})")
+        else:
+            fwd_err, fwd_tol = wkv_err([o.detach() for o in outs], [p.detach() for p in p_outs])
+            if not fwd_err <= fwd_tol:
+                fail(f"(c) wkv6: forward err {fwd_err:.3e} > {fwd_tol:.3e}")
+        errs = []
+        for i, (gk, gp) in enumerate(zip(grads, p_grads)):
+            scale = float(gp.abs().max())
+            err = float((gk - gp).abs().max())
+            if gk is None or not bool(torch.isfinite(gk).all()) or not err <= tol * scale:
+                fail(f"(c) {name}: gradient of input {i} err {err:.3e} > {tol} x {scale:.3e}")
+            errs.append(err / max(scale, 1e-30))
+        # each input, upstream gradient, output and input gradient moved once;
+        # the scan 5 fp32 operations an element (2 forward, 2 in the adjoint
+        # scan, 1 for da), WKV-6 21 a state element and step (7 forward, 14
+        # for the adjoint state, dr, dk, dv and dw)
+        if name == "linear_scan":
+            nbytes, flops = 4 * (6 * B * T * D + 4 * B * D), 5.0 * B * T * D
+        else:
+            nbytes = 4 * (10 * Bw * H * Tw * Dw + 4 * Bw * H * Dw * Dw + 2 * H * Dw)
+            flops = 21.0 * Bw * H * Tw * Dw * Dw
+        b_ms, b_by = bound_ms(nbytes, flops, hw.FP32_FLOPS_PER_S)
+        # WKV-6's backward is the plain loop's on both paths (about half a
+        # second): 2 samples each, the runs above its warm-up
+        iters, warmup = (5, 2) if name == "linear_scan" else (2, 0)
+        ms = time_ms(lambda: _fwd_bwd(fn, args, upg), iters, warmup)
+        plain_ms = time_ms(lambda: _fwd_bwd(plain, args, upg), iters, warmup)
+        rows[name] = dict(shape=list(args[0].shape), launches_fwd_bwd=launched,
+                          fwd_max_abs_err=fwd_err, grad_rel_err=errs, tolerance=tol,
+                          fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        results.setdefault(name, {}).update(train_ms=ms, train_plain_ms=plain_ms,
+                                            train_bound_ms=b_ms, train_bound_by=b_by)
+        print(f"(c) {name} {tuple(args[0].shape)} under autograd: forward == direct kernel call, "
+              f"vs plain {fwd_err:.3e}; gradients within {max(errs):.2e} of scale (tolerance "
+              f"{tol}); {launched} launches forward + backward; fwd+bwd {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+    return rows
+
+
+def one_step(name: str, make_params, totals: dict) -> dict:
+    """(d): one training step of ``name`` at published widths, cut to
+    ``ONE_STEP_LAYERS``: every gradient finite, the scan's and WKV-6's
+    launches counted in the forward and in the backward."""
+    cfg = dataclasses.replace(get(name), n_layers=ONE_STEP_LAYERS[name])
+    model = build(cfg)
+    params = make_params(cfg)
+    b = batch_at(DataConfig(vocab=cfg.vocab, seq_len=ONE_STEP_SEQ,
+                            global_batch=ONE_STEP_BATCH), 0)
+    toks, labels = (torch.from_numpy(b[k]).to(DEV) for k in ("tokens", "labels"))
+    for n in WRAPPERS:
+        WRAPPERS[n].launches = 0
+    views = topt.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss = model.loss(views, toks, labels)
+    fwd = {n: WRAPPERS[n].launches for n in ("linear_scan", "wkv6")}
+    grads = topt.tree_unflatten(params, torch.autograd.grad(
+        loss, topt.tree_leaves(views), materialize_grads=True))
+    bwd = {n: WRAPPERS[n].launches - fwd[n] for n in fwd}
+    for n in WRAPPERS:
+        totals[n] += WRAPPERS[n].launches
+    norms = _finite_grads(f"(d) {name}", grads)
+    state = topt.init_state(params)
+    topt.apply_updates(topt.AdamWConfig(), params, grads, state)
+    if not all(bool(torch.isfinite(p).all()) for p in topt.tree_leaves(params)):
+        fail(f"(d) {name}: a parameter is not finite after the update")
+    res = dict(layers=cfg.n_layers, d_model=cfg.d_model, loss=float(loss.detach()),
+               grad_leaves=len(norms), launches_fwd=fwd, launches_bwd=bwd)
+    if cfg.mixer == "rwkv6" and not (fwd["wkv6"] > 0):
+        fail(f"(d) {name}: wkv6 was not launched in the forward")
+    if cfg.family == "hybrid" and not (fwd["linear_scan"] > 0 and bwd["linear_scan"] > 0):
+        fail(f"(d) {name}: linear_scan launches forward {fwd['linear_scan']}, backward "
+             f"{bwd['linear_scan']}; both must rise")
+    if cfg.moe is not None:
+        with torch.no_grad():
+            x, aux = model._backbone(params, L.embed(params["embed"], toks), None, None, L.PLAIN)
+        if aux is None or not float(aux) > 0:
+            fail(f"(d) {name}: the MoE aux loss is {aux}")
+        res["aux"] = float(aux)
+    print(f"(d) {name}: one step at {cfg.n_layers} layers, d_model {cfg.d_model}, batch "
+          f"{ONE_STEP_BATCH} x {ONE_STEP_SEQ}: loss {res['loss']:.4f}"
+          + (f" (aux {res['aux']:.4f})" if "aux" in res else "")
+          + f", {len(norms)} gradient leaves finite; launches forward {fwd}, backward {bwd}",
+          flush=True)
+    return res
+
+
+def train_phase(totals: dict, results: dict, card: str) -> dict:
+    """Phase 14: training.  (c) the kernels under autograd, (a) smollm-360m
+    at full width and depth, then (e) the launcher in a subprocess while
+    (b) a restart and (d) one step each of rwkv6, recurrentgemma and
+    granite-moe run beside it (the timings of (c) and (a) see no
+    neighbour)."""
+    t0 = time.perf_counter()
+
+    def stamp(part):
+        print(f"[phase 14: {time.perf_counter() - t0:.1f} s] {part}", flush=True)
+
+    stamp("(c) the kernels under autograd")
+    res = {"kernels": train_kernels(results)}
+    stamp("(a) smollm-360m, 20 steps")
+    res["smollm"] = train_full(card, stamp)
+    stamp("(e) the launcher starts; (b) restart")
+    d = tempfile.mkdtemp(prefix="train_launch_", dir=ROOT / "build")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "smollm-360m",
+           "--steps", str(LAUNCH_STEPS), "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+           "--microbatches", str(TRAIN_MB), "--ckpt-dir", d, "--ckpt-every", str(LAUNCH_EVERY)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        res["restart"] = train_restart(card)
+        stamp("(d) one step each")
+        res["one_step"] = {
+            "rwkv6-1.6b": one_step("rwkv6-1.6b", rwkv_params, totals),
+            "recurrentgemma-2b": one_step("recurrentgemma-2b", rg_params, totals),
+            "granite-moe-1b-a400m": one_step(
+                "granite-moe-1b-a400m",
+                lambda cfg: build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV),
+                totals),
+        }
+        for n in ("linear_scan", "wkv6"):
+            results.setdefault(n, {})["train_launches"] = sum(
+                r["launches_fwd"][n] + r["launches_bwd"][n] for r in res["one_step"].values())
+        stamp("(e) waiting for the launcher")
+        out, err = cli.communicate(timeout=300)
+        steps = ckpt.list_steps(d)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    if cli.returncode != 0 or "done" not in out or LAUNCH_STEPS not in steps:
+        fail(f"(e) launcher: exit {cli.returncode}, checkpoints {steps}\n{out[-2000:]}\n"
+             f"{err[-2000:]}")
+    res["launcher"] = dict(cmd=" ".join(cmd[1:]), stdout=out.splitlines(), checkpoints=steps)
+    print(f"(e) python {' '.join(cmd[1:3])} ... exit 0, checkpoints {steps}:", flush=True)
+    for line in out.splitlines():
+        print(f"  {line}")
+    res["seconds"] = time.perf_counter() - t0
+    print(f"phase 14: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -3854,6 +4250,15 @@ def main() -> None:
         print(json.dumps({"zoo": zoo, "launches": totals,
                           "decode_d240_global": {k: v for k, v in results.items()
                                                  if k.endswith("_d240_global")}}))
+        return
+    if sys.argv[1:] == ["--train"]:
+        # training alone: phase 14
+        banner("training at full width")
+        totals = {n: 0 for n in WRAPPERS}
+        trained = train_phase(totals, results, card)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"train": trained, "launches": totals}))
         return
     sched_only = sys.argv[1:] == ["--sched"]
     recover_only = sys.argv[1:] == ["--recover"]
@@ -3962,6 +4367,9 @@ def main() -> None:
     flash_phase(totals, results)
     check_widened(results)
 
+    banner("training at full width")
+    trained = train_phase(totals, results, card)
+
     banner("reference check")
     check_decode_step(cfg, params)
 
@@ -3973,14 +4381,17 @@ def main() -> None:
              serve=runs, decode_profile=prof, sdc=sdc, sched=sched, recover=recover,
              autotune=plans, conv=convs,
              rwkv=rwkv,
-             recurrentgemma=rgemma, zoo=zoo,
+             recurrentgemma=rgemma, zoo=zoo, train=trained,
              seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [
         dict(name=n, **KERNEL_INFO[n], launches=totals[n],
              max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
              plain_ms=results[n]["plain_ms"], bound_ms=results[n]["bound_ms"],
-             bound_by=results[n]["bound_by"], library_ms=results[n]["library_ms"])
+             bound_by=results[n]["bound_by"], library_ms=results[n]["library_ms"],
+             **{k: results[n][k] for k in ("train_launches", "train_ms", "train_plain_ms",
+                                           "train_bound_ms", "train_bound_by")
+                if k in results[n]})
         for n in WRAPPERS
     ]
     print(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -22,7 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.arch import layers as L
-from repro_torch.arch.transformer import _index
+from repro_torch.arch.transformer import _index, _remat, _unstack
 from repro_torch.configs.base import ModelConfig
 
 
@@ -56,28 +56,31 @@ class EncDecModel:
         }
 
     def encode(self, params: dict, frames: torch.Tensor,
-               dispatch: L.Dispatch = L.PLAIN) -> torch.Tensor:
-        """frames: (B, T_enc, D) precomputed embeddings -> (B, T_enc, D)."""
+               dispatch: L.Dispatch = L.PLAIN, remat: bool = False) -> torch.Tensor:
+        """frames: (B, T_enc, D) precomputed embeddings -> (B, T_enc, D).
+        ``remat`` rematerialises each layer in the backward pass."""
         cfg = self.cfg
-        x = frames
-        for i in range(cfg.encoder_layers):
-            p = _index(params["enc_layers"], i)
+
+        def layer(p, x):
             h, _ = L.multihead_attention(
                 p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
                 causal=False, dispatch=dispatch,
             )
             x = x + h
-            x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
+            return x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
+
+        x = frames
+        for p in _unstack(params["enc_layers"], cfg.encoder_layers):
+            x = _remat(cfg, remat, layer, p, x)
         return L.rmsnorm(params["enc_ln"], x, cfg.norm_eps)
 
-    def _decoder(self, params, x, enc_out, positions, caches, dispatch):
+    def _decoder(self, params, x, enc_out, positions, caches, dispatch, remat=False):
         cfg = self.cfg
-        for i in range(cfg.n_layers):
-            p = _index(params["dec_layers"], i)
+
+        def layer(p, x, c, enc_out):
             h, _ = L.multihead_attention(
                 p["self_attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
-                positions=positions, causal=True,
-                cache=None if caches is None else _index(caches, i), dispatch=dispatch,
+                positions=positions, causal=True, cache=c, dispatch=dispatch,
             )
             x = x + h
             h, _ = L.multihead_attention(
@@ -85,8 +88,24 @@ class EncDecModel:
                 kv_x=enc_out, causal=False, use_rope=False, dispatch=dispatch,
             )
             x = x + h
-            x = x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
+            return x + L.mlp(p["mlp"], cfg, L.rmsnorm(p["ln2"], x, cfg.norm_eps), dispatch)
+
+        for i, p in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
+            c = None if caches is None else _index(caches, i)
+            x = _remat(cfg, remat, layer, p, x, c, enc_out)
         return x
+
+    def loss(self, params: dict, frames: torch.Tensor, tokens: torch.Tensor,
+             labels: torch.Tensor, remat: bool = True) -> torch.Tensor:
+        """Mean next-token cross entropy (fp32) of the decoder on
+        ``tokens`` given the encoded ``frames``; the plain path, each
+        encoder and decoder layer rematerialised when ``remat``."""
+        cfg = self.cfg
+        enc_out = self.encode(params, frames, remat=remat)
+        x = L.embed(params["embed"], tokens)
+        x = self._decoder(params, x, enc_out, None, None, L.PLAIN, remat)
+        logits = L.unembed(params["embed"], L.rmsnorm(params["final_ln"], x, cfg.norm_eps))
+        return L.cross_entropy(logits, labels)
 
     def _head(self, params, x, dispatch):
         """Logits of the last position (the final norm and the unembedding

@@ -334,3 +334,12 @@ def unembed(params: dict, x: torch.Tensor, dispatch: Dispatch = PLAIN) -> torch.
     if "unembed" in params:
         return _mm(x, params["unembed"], dispatch)
     return _mm(x, params["tok"], dispatch, trans_b=True)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token CE in fp32; labels < 0 are masked out."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)

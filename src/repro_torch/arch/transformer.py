@@ -5,6 +5,7 @@ RWKV-6 and hybrid (recurrentgemma) paths; port of
 One :class:`Model` per config exposing
 
     init(generator, device)                        -> params
+    loss(params, tokens, labels, patches, remat)   -> scalar CE (+ MoE aux)
     prefill(params, tokens, caches, ...)           -> (logits_last, caches)
     decode_step(params, tokens, caches, ...)       -> (logits, caches)
     init_caches(batch, max_len, device)            -> caches
@@ -14,21 +15,31 @@ Parameters keep the reference's layer-stacked layout (every leaf under
 ``params["groups"]`` leaves lead with ``(n_groups, rnn_per_attention)``
 under ``rnn`` and ``(n_groups,)`` under ``attn``, ``params["tail"]``'s with
 the remainder's rnn layers); the reference's ``lax.scan`` over those axes
-becomes a Python loop that indexes one layer's weights and cache views at
-a time.  Caches are updated in place.  MoE blocks hold ``moe`` (router and
-stacked experts, ``arch/moe.py``) where dense blocks hold ``mlp``; the VLM
+becomes a Python loop over one layer's weights (``torch.unbind`` views, so
+a gradient of the stack is one stacked tensor, not a sum of per-layer
+scatters) and cache views at a time.  Caches are updated in place.  MoE
+blocks hold ``moe`` (router and stacked experts, ``arch/moe.py``) where
+dense blocks hold ``mlp``; the VLM
 family adds ``patch_proj``, which ``prefill(patches=...)`` applies.  With
 caches, gemma3's layers run in groups of ``global_every - 1`` local layers
 and one global layer over window-sized rings (``_backbone_local_global``).
+
+Training (:meth:`Model.loss`) runs the plain path, ``torch.matmul`` for
+every projection as the reference trains through ``x @ w``, and
+rematerialises each layer (each hybrid group) with ``torch.utils.checkpoint``
+as the reference wraps its scan bodies in ``jax.checkpoint``
+(:func:`remat_policy_of`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.arch import layers as L
 from repro_torch.arch import moe as M
@@ -37,6 +48,37 @@ from repro_torch.arch import rwkv as R
 from repro_torch.configs.base import Family, Mixer, ModelConfig
 
 GLOBAL_WINDOW = 2**30  # "window" that never masks = global attention
+
+
+def remat_policy_of(cfg: ModelConfig):
+    """``torch.utils.checkpoint``'s ``context_fn`` for the config's knob:
+    ``"dots"`` keeps the matrix products that have no batch dimension
+    (``aten.mm``: every ``x @ w`` projection; attention's batched products
+    are recomputed), as ``jax.checkpoint_policies.
+    checkpoint_dots_with_no_batch_dims`` does; ``"full"`` (None) keeps
+    nothing."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, [torch.ops.aten.mm.default]
+        )
+    return None
+
+
+def _remat(cfg: ModelConfig, remat: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when ``remat``.
+    The layers draw no random numbers, so no RNG state is kept."""
+    if not remat:
+        return fn(*args)
+    ctx = remat_policy_of(cfg)
+    kw = {} if ctx is None else {"context_fn": ctx}
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _add_aux(total, aux):
+    """Sum of MoE aux losses, None while no layer has one."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -76,7 +118,8 @@ def attn_block_apply(
     cache: dict | None,
     ragged_ok: bool | None = None,
     dispatch: L.Dispatch = L.PLAIN,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(output, MoE aux loss or None)."""
     h, _ = L.multihead_attention(
         p["attn"], cfg, L.rmsnorm(p["ln1"], x, cfg.norm_eps),
         positions=positions, causal=True, window=window, cache=cache,
@@ -87,9 +130,9 @@ def attn_block_apply(
     if cfg.moe is not None:
         # the aux loss is for training; prefill and decode drop it, as the
         # reference's do
-        f, _ = M.moe_apply(p["moe"], cfg, z, dispatch)
-        return x + f
-    return x + L.mlp(p["mlp"], cfg, z, dispatch)
+        f, aux = M.moe_apply(p["moe"], cfg, z, dispatch)
+        return x + f, aux
+    return x + L.mlp(p["mlp"], cfg, z, dispatch), None
 
 
 def rwkv_block_apply(
@@ -115,6 +158,16 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a layer-stacked dict tree, as views
+    (``torch.unbind``: the gradient of each stacked leaf is one stack of
+    the layers' gradients)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,20 +238,25 @@ class Model:
         positions: torch.Tensor | None,
         caches: dict | None,
         dispatch: L.Dispatch,
-    ) -> torch.Tensor:
+        remat: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(hidden states, the layers' summed MoE aux loss or None).
+        ``remat`` rematerialises each layer (each hybrid group) in the
+        backward pass; it is for training, with no caches."""
         cfg = self.cfg
         if cfg.family == "hybrid":
-            return self._backbone_hybrid(params, x, positions, caches, dispatch)
+            return self._backbone_hybrid(params, x, positions, caches, dispatch, remat)
         if cfg.global_every and caches is not None:
             return self._backbone_local_global(params, x, positions, caches, dispatch)
+        layers = _unstack(params["layers"], cfg.n_layers)
         if cfg.mixer == "rwkv6":
+            def rwkv_layer(p, x, c):
+                return rwkv_block_apply(p, cfg, x, cache=c, dispatch=dispatch)
+
             for i in range(cfg.n_layers):
-                x = rwkv_block_apply(
-                    _index(params["layers"], i), cfg, x,
-                    cache=None if caches is None else _index(caches, i),
-                    dispatch=dispatch,
-                )
-            return x
+                c = None if caches is None else _index(caches, i)
+                x = _remat(cfg, remat, rwkv_layer, layers[i], x, c)
+            return x, None
         wins = layer_windows(cfg)
         # the ragged-decode ring invariant (ring extent <= window) checked
         # once over all layers and passed down as a hint
@@ -216,38 +274,45 @@ class Model:
         if trace is not None:
             sites = (trace.mm_calls, trace.attn_calls)
             layer_flags = []
+
+        def attn_layer(p, x, c, window):
+            return attn_block_apply(
+                p, cfg, x, window=window, positions=positions, cache=c,
+                ragged_ok=ragged, dispatch=dispatch,
+            )
+
+        aux = None
         for i in range(cfg.n_layers):
             if trace is not None:
                 trace.layer = i
                 trace.mm_calls, trace.attn_calls = sites
-            x = attn_block_apply(
-                _index(params["layers"], i), cfg, x,
-                window=int(wins[i]), positions=positions,
-                cache=None if caches is None else _index(caches, i),
-                ragged_ok=ragged, dispatch=dispatch,
-            )
+            c = None if caches is None else _index(caches, i)
+            x, a = _remat(cfg, remat, attn_layer, layers[i], x, c, int(wins[i]))
+            aux = _add_aux(aux, a)
             if trace is not None:
                 layer_flags.append(trace.drain(x.device))
         if trace is not None:
             trace.layer = None
             trace.flags.append(torch.stack(layer_flags).any())
-        return x
+        return x, aux
 
     def _backbone_local_global(self, params, x, positions, caches, dispatch):
         """gemma3 with caches: each group is ``global_every - 1`` local
         layers at the sliding window, on window-sized rings, then one
         global layer on a ``max_len`` cache; a tail of local layers
         follows.  The parameters stay layer-stacked: layer ``g *
-        global_every + j`` is local ring ``j`` of group ``g``."""
+        global_every + j`` is local ring ``j`` of group ``g``.  The aux
+        loss is dropped, as the reference's grouped scan drops it."""
         cfg = self.cfg
         ge = cfg.global_every
         ng = cfg.n_layers // ge
+        layers = _unstack(params["layers"], cfg.n_layers)
 
         def layer(x, i, window, cache):
             return attn_block_apply(
-                _index(params["layers"], i), cfg, x, window=window,
+                layers[i], cfg, x, window=window,
                 positions=positions, cache=cache, dispatch=dispatch,
-            )
+            )[0]
 
         for gi in range(ng):
             c = _index(caches["groups"], gi)
@@ -256,32 +321,38 @@ class Model:
             x = layer(x, gi * ge + ge - 1, None, c["global"])
         for t in range(cfg.n_layers - ng * ge):
             x = layer(x, ng * ge + t, cfg.sliding_window, _index(caches["tail"], t))
-        return x
+        return x, None
 
-    def _backbone_hybrid(self, params, x, positions, caches, dispatch):
+    def _backbone_hybrid(self, params, x, positions, caches, dispatch, remat=False):
         """Groups of (rnn x rnn_per_attention, attention), then the tail's
-        rnn layers; every attention layer has the sliding window."""
+        rnn layers; every attention layer has the sliding window.  With
+        ``remat`` each group is rematerialised, the tail is not (as in the
+        reference)."""
         cfg = self.cfg
         ng, rem = divmod(cfg.n_layers, cfg.rnn_per_attention + 1)
-        for gi in range(ng):
-            p = _index(params["groups"], gi)
-            c = None if caches is None else _index(caches["groups"], gi)
+
+        def group(p, x, c):
+            rnn = _unstack(p["rnn"], cfg.rnn_per_attention)
             for r in range(cfg.rnn_per_attention):
                 x = rnn_block_apply(
-                    _index(p["rnn"], r), cfg, x,
+                    rnn[r], cfg, x,
                     cache=None if c is None else _index(c["rnn"], r), dispatch=dispatch,
                 )
-            x = attn_block_apply(
+            return attn_block_apply(
                 p["attn"], cfg, x, window=cfg.sliding_window, positions=positions,
                 cache=None if c is None else c["attn"], dispatch=dispatch,
-            )
-        for i in range(rem):
+            )[0]
+
+        for gi, p in enumerate(_unstack(params["groups"], ng)):
+            c = None if caches is None else _index(caches["groups"], gi)
+            x = _remat(cfg, remat, group, p, x, c)
+        for i, p in enumerate(_unstack(params["tail"], rem) if rem else []):
             x = rnn_block_apply(
-                _index(params["tail"], i), cfg, x,
+                p, cfg, x,
                 cache=None if caches is None else _index(caches["tail"], i),
                 dispatch=dispatch,
             )
-        return x
+        return x, None
 
     def logits_fn(
         self,
@@ -291,9 +362,36 @@ class Model:
         caches: dict | None = None,
         dispatch: L.Dispatch = L.PLAIN,
     ) -> tuple[torch.Tensor, dict | None]:
-        x = self._backbone(params, x, positions, caches, dispatch)
+        x, _ = self._backbone(params, x, positions, caches, dispatch)
         x = L.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
         return L.unembed(params["embed"], x, dispatch), caches
+
+    # -------------------------------------------------------------- train --
+    def loss(
+        self,
+        params: dict,
+        tokens: torch.Tensor,
+        labels: torch.Tensor,
+        patches: torch.Tensor | None = None,
+        remat: bool = True,
+    ) -> torch.Tensor:
+        """Mean next-token cross entropy (fp32) plus 0.01 x the layers'
+        summed MoE aux loss.  VLM ``patches`` are projected and put before
+        the tokens, with label -1 (cast to the model's dtype, as
+        :meth:`prefill` casts them).  The plain path: every projection is
+        ``torch.matmul``, as the reference trains through ``x @ w``."""
+        x = L.embed(params["embed"], tokens)
+        if self.cfg.family == "vlm" and patches is not None:
+            w = params["patch_proj"]
+            px = patches.to(w.dtype) @ w
+            x = torch.cat([px, x], dim=1)
+            labels = torch.cat(
+                [torch.full(px.shape[:2], -1, dtype=labels.dtype, device=labels.device),
+                 labels], dim=1)
+        x, aux = self._backbone(params, x, None, None, L.PLAIN, remat=remat)
+        x = L.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
+        ce = L.cross_entropy(L.unembed(params["embed"], x), labels)
+        return ce if aux is None else ce + 0.01 * aux
 
     # -------------------------------------------------------------- serve --
     def init_caches(self, batch: int, max_len: int, device=None) -> dict:
@@ -336,7 +434,7 @@ class Model:
         positions = None
         if not from_cursor:
             positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        x = self._backbone(params, x, positions, caches, dispatch)
+        x, _ = self._backbone(params, x, positions, caches, dispatch)
         if last_index is None:
             x = x[:, -1]
         else:

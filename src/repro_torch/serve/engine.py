@@ -71,6 +71,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import enum
+import warnings
 from collections import deque
 from typing import Any, Callable
 
@@ -305,8 +306,55 @@ class DurabilityConfig:
             )
 
 
-@dataclasses.dataclass
+# the reference's pre-redesign flat ServeConfig keywords -> (sub-config
+# attribute, field name); ServeConfig.__init__ routes each through
+# dataclasses.replace on its sub-config, which re-runs that sub-config's
+# validation, with one DeprecationWarning naming every flat keyword used.
+# ``substrate_fallback`` has no field here: the port never falls back to
+# another substrate, so only its False (a kernel failure raises) is taken.
+_LEGACY_FLAT = {
+    "batch": ("scheduler", "batch"),
+    "prefill_bucket": ("scheduler", "prefill_bucket"),
+    "prefill_chunk": ("scheduler", "prefill_chunk"),
+    "token_budget": ("scheduler", "token_budget"),
+    "max_waiting": ("scheduler", "max_waiting"),
+    "stall_patience": ("scheduler", "stall_patience"),
+    "priorities": ("scheduler", "priorities"),
+    "kv_layout": ("kv", "layout"),
+    "block_size": ("kv", "block_size"),
+    "num_blocks": ("kv", "num_blocks"),
+    "prefix_sharing": ("kv", "prefix_sharing"),
+    "decode_block": ("kv", "decode_block"),
+    "matmul": ("kernel", "matmul"),
+    "attention": ("kernel", "attention"),
+    "abft": ("kernel", "abft"),
+    "scrub_every": ("kernel", "scrub_every"),
+    "snapshot_dir": ("durability", "snapshot_dir"),
+    "snapshot_every": ("durability", "snapshot_every"),
+    "snapshot_keep": ("durability", "snapshot_keep"),
+    "journal_fsync_every": ("durability", "journal_fsync_every"),
+    "guard_nan": ("durability", "guard_nan"),
+    "kv_checksum": ("durability", "kv_checksum"),
+    "substrate_fallback": ("durability", "substrate_fallback"),
+}
+
+
+def _flat_property(sub: str, field: str) -> property:
+    return property(lambda self: getattr(getattr(self, sub), field),
+                    doc=f"Read-through alias of ``{sub}.{field}``.")
+
+
+@dataclasses.dataclass(init=False)
 class ServeConfig:
+    """Engine configuration: shape and sampling fields at the top level
+    plus four nested sub-configs (scheduler, kv, kernel, durability).
+
+    The reference's flat keywords still construct, as there
+    (``ServeConfig(block_size=32)`` sets ``kv.block_size`` and warns
+    ``DeprecationWarning``), and every flat name reads through a property
+    (``scfg.block_size``).  ``dataclasses.replace`` takes both
+    spellings."""
+
     max_len: int = 256
     temperature: float = 0.0
     seed: int = 0
@@ -314,6 +362,51 @@ class ServeConfig:
     kv: KVConfig = dataclasses.field(default_factory=KVConfig)
     kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
     durability: DurabilityConfig = dataclasses.field(default_factory=DurabilityConfig)
+
+    def __init__(
+        self,
+        max_len: int = 256,
+        temperature: float = 0.0,
+        seed: int = 0,
+        scheduler: SchedulerConfig | None = None,
+        kv: KVConfig | None = None,
+        kernel: KernelConfig | None = None,
+        durability: DurabilityConfig | None = None,
+        **flat,
+    ):
+        self.max_len = max_len
+        self.temperature = temperature
+        self.seed = seed
+        self.scheduler = scheduler if scheduler is not None else SchedulerConfig()
+        self.kv = kv if kv is not None else KVConfig()
+        self.kernel = kernel if kernel is not None else KernelConfig()
+        self.durability = durability if durability is not None else DurabilityConfig()
+        if flat:
+            unknown = sorted(set(flat) - set(_LEGACY_FLAT))
+            if unknown:
+                raise TypeError(f"ServeConfig got unexpected kwargs: {', '.join(unknown)}")
+            warnings.warn(
+                f"flat ServeConfig kwarg(s) {sorted(flat)} are deprecated; "
+                f"use the nested sub-configs "
+                f"(scheduler=SchedulerConfig(...), kv=KVConfig(...), "
+                f"kernel=KernelConfig(...), durability=DurabilityConfig(...))",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            if flat.pop("substrate_fallback", False):
+                raise ValueError(
+                    "substrate_fallback=True: the port has no substrate fallback; "
+                    "a kernel failure raises"
+                )
+            grouped: dict[str, dict] = {}
+            for name, val in flat.items():
+                sub, field = _LEGACY_FLAT[name]
+                grouped.setdefault(sub, {})[field] = val
+            for sub, kwargs in grouped.items():
+                # replace() re-runs the sub-config's __post_init__, so a flat
+                # keyword validates exactly as the nested one does
+                setattr(self, sub, dataclasses.replace(getattr(self, sub), **kwargs))
+        self.__post_init__()
 
     def __post_init__(self):
         if self.max_len < 2:
@@ -340,6 +433,9 @@ class ServeConfig:
                 f"max_len {self.max_len} must be a multiple of prefill_chunk {chunk} "
                 f"so the final chunk's right-padding never overflows the scratch lane"
             )
+
+    substrate_fallback = property(
+        lambda self: False, doc="Always False: a kernel failure raises (no fallback).")
 
     def resolved_num_blocks(self) -> int:
         if self.kv.num_blocks is not None:
@@ -546,6 +642,12 @@ class SDCUnlocalizedError(RuntimeError):
     request: the retry on the plain attention still failed its checksums,
     or the weight fingerprint changed.  Raised BEFORE the step's tokens are
     emitted, so no corrupt token leaves the engine."""
+
+
+for _name, (_sub, _field) in _LEGACY_FLAT.items():
+    if _name != "substrate_fallback":
+        setattr(ServeConfig, _name, _flat_property(_sub, _field))
+del _name, _sub, _field
 
 
 def resolve_device(device=None) -> torch.device:
