@@ -14,6 +14,7 @@
     python3 chip_smoke.py --zoo       # the rest of the model zoo at full width (phase 12)
     python3 chip_smoke.py --autotune  # the serve planner on the card (phase 13)
     python3 chip_smoke.py --train     # training at full width (phase 14)
+    python3 chip_smoke.py --parallel  # the parallel layer on a one-rank mesh (phase 15)
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and the ``src/repro_torch``
 package beside this script; without them it exits non-zero and prints no
@@ -293,7 +294,30 @@ result.  Phases, any failure of which exits non-zero:
    -m repro_torch.launch.train --arch smollm-360m --steps 4 --batch 8
    --seq 512 --microbatches 2 --ckpt-dir DIR --ckpt-every 2`` in a
    subprocess, run beside (b) and (d) (so (b)'s times share the host): exit
-   0, ``done``, ``step_00000004``.
+   0, ``done``, ``step_00000004``; the launcher trains on the one-rank NCCL
+   mesh of ``launch/mesh.py`` with the sharding plan and the policy;
+15. the parallel layer (``parallel/``, ``launch/mesh.py``, ``launch/steps.py``'s
+   ``accum_spec``, ``ckpt.restore(shardings=)``, ``launch/dryrun.py``) on a
+   one-rank NCCL ``DeviceMesh`` (the card is one rank; multi-rank meshes
+   are the CPU tests' and the dry run's): (a) smollm-360m's widths at 8 of
+   its 32 layers (the phase's time), 4 AdamW steps at batch 8 x 512 in 2
+   microbatches with parameters and optimizer state placed by the plan
+   (FSDP), the policy active and ``accum_spec``, against the same steps with
+   no mesh: losses and parameters bitwise equal (one rank runs the same
+   operations on its local tensors; a difference fails with the first
+   differing operation), and the host seconds of each step with and
+   without the mesh (the steps after the first are the mesh's steady
+   cost); (b) one training step each of recurrentgemma-2b
+   and rwkv6-1.6b (4 layers, batch 2 x 256) on the mesh: gradients and loss
+   bitwise the plain step's, the scan and WKV-6 launched in the forward and
+   the scan in the backward (counts set to 0 just before); (c)
+   ``compressed_psum`` of (a)'s fp32 gradients over the NCCL group bitwise
+   ``quantize_roundtrip``, its card ms beside the bytes bound of its passes
+   and the plain ``all_reduce``'s ms; (d) (a)'s parameters checkpointed with
+   no mesh restore onto the mesh with ``shardings=``, and the mesh's with no
+   mesh, bit for bit; (e) ``python -m repro_torch.launch.dryrun --arch
+   smollm-360m --shape decode_32k`` in a subprocess beside (a)-(d): exit 0
+   and a record whose peak a device is under 80 GB.
 
 ``--decode`` runs phase 1 and the decode-attention checks of phases 2, 7 (a)
 and 8 (c) (kernel against plain, paged == contiguous, times beside the
@@ -316,7 +340,8 @@ grid, shared memory, bytes in flight), held equal to the kernel's own.
 ``wkv6.cu`` (the same C entry points, say the parent commit's) and times
 them beside this build's on the same inputs, in turns.  ``--zoo`` runs
 phase 1 and phase 12, whose JSON it prints last (no ``ok`` line), and
-``--train`` phase 1 and phase 14 the same way.
+``--train`` phase 1 and phase 14 the same way, ``--parallel`` phase 1 and
+phase 15.
 """
 
 from __future__ import annotations
@@ -4171,6 +4196,320 @@ def train_phase(totals: dict, results: dict, card: str) -> dict:
     return res
 
 
+# --------------------------------------------------------- parallel phase --
+
+PAR_LAYERS = 8            # (a): smollm-360m's widths, 8 of its 32 layers (the phase's time)
+PAR_STEPS = 4             # (a)
+PAR_ONE_STEP_LAYERS = 4   # (b): rwkv6-1.6b and recurrentgemma-2b
+
+
+def _bitwise_trees(a: dict, b: dict) -> list[str]:
+    """Paths whose leaves differ in a bit (b's DTensor leaves compared by
+    their full tensors)."""
+    from torch.distributed.tensor import DTensor
+
+    bad = []
+    for (key, x), (_, y) in zip(ckpt._paths(a), ckpt._paths(b)):
+        y = y.full_tensor() if isinstance(y, DTensor) else y
+        x = x.full_tensor() if isinstance(x, DTensor) else x
+        if not torch.equal(x, y):
+            bad.append(key)
+    return bad
+
+
+def op_at_fault(plain_fn, mesh_fn) -> str:
+    """The first aten operation whose output differs between ``plain_fn``
+    and ``mesh_fn`` (a one-rank mesh runs the same operations on its local
+    tensors): both run under a recording mode that sees local operations
+    only, views, copies and collectives left out, and the outputs'
+    float64 sums are compared in order."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    skip = ("_c10d_functional", "aten::view", "aten::_unsafe_view", "aten::_to_copy",
+            "aten::clone", "aten::copy_", "aten::detach", "aten::alias", "aten::t",
+            "aten::transpose", "aten::permute", "aten::expand", "aten::slice",
+            "aten::select", "aten::unbind", "aten::split", "aten::as_strided")
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            name = func._schema.name
+            if not name.startswith(skip) and isinstance(out, torch.Tensor) \
+                    and out.is_floating_point():
+                self.seen.append((str(func), float(out.double().sum())))
+            return out
+
+    runs = []
+    for fn in (plain_fn, mesh_fn):
+        rec = Record()
+        with rec:
+            fn()
+        runs.append(rec.seen)
+    for i, (p, m) in enumerate(zip(*runs)):
+        if p != m:
+            return f"operation {i}: {p[0]} (plain sum {p[1]!r}) against {m[0]} (mesh sum {m[1]!r})"
+    return f"none of the first {min(map(len, runs))} operations ({len(runs[0])} plain, " \
+           f"{len(runs[1])} on the mesh)"
+
+
+def par_train(mesh, plan, card: str) -> dict:
+    """(a): smollm-360m's widths at PAR_LAYERS layers, PAR_STEPS steps at
+    batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MB microbatches, with no mesh
+    and on the one-rank mesh (plan, policy, accum_spec); losses and
+    parameters bitwise.  Returns the readings, the mesh's final
+    parameters and the first step's fp32 gradients (for (c), (d))."""
+    from repro_torch.launch.steps import make_loss_fn, make_train_step as steps_train_step
+    from repro_torch.parallel import policy
+    from repro_torch.parallel.sharding import P
+
+    cfg = dataclasses.replace(get("smollm-360m"), n_layers=PAR_LAYERS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    ocfg = topt.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=PAR_STEPS)
+    batches = [{k: torch.from_numpy(v).to(DEV).reshape(TRAIN_MB, -1, TRAIN_SEQ)
+                for k, v in batch_at(dcfg, i).items()} for i in range(PAR_STEPS)]
+
+    def init():
+        p = build(cfg).init(torch.Generator(device=DEV).manual_seed(0), DEV)
+        return p, topt.init_state(p)
+
+    def timed(step_fn, batch, read):
+        """(loss, host seconds) of one step, the card synchronised."""
+        t0 = time.perf_counter()
+        loss = read(step_fn(batch)[2]["loss"])
+        torch.cuda.synchronize()
+        return loss, time.perf_counter() - t0
+
+    params, state = init()
+    plain = steps_train_step(cfg, ocfg)
+    losses, plain_steps = zip(*(timed(lambda b: plain(params, state, b), b, float)
+                                for b in batches))
+    losses = list(losses)
+
+    mparams, mstate = init()
+    pspec = plan.param_spec(mparams)
+    mparams = plan.place(mparams, pspec)
+    mstate = plan.place(mstate, plan.opt_state_spec(pspec))
+    bspec = {k: P(None, plan.dp_axes, None) for k in ("tokens", "labels")}
+    step = steps_train_step(cfg, ocfg, accum_spec=pspec)
+    with policy.activate(mesh):
+        mlosses, mesh_steps = zip(*(timed(lambda b: step(mparams, mstate, plan.place(b, bspec)),
+                                          b, lambda x: float(x.full_tensor()))
+                                    for b in batches))
+    mlosses = list(mlosses)
+    # the steady cost of a step: the steps after the first (which builds
+    # DTensor's sharding cache)
+    steady = {k: sum(v[1:]) / (len(v) - 1) for k, v in (("plain", plain_steps),
+                                                        ("mesh", mesh_steps))}
+    bad = _bitwise_trees(params, mparams)
+    if mlosses != losses or bad:
+        loss_fn = make_loss_fn(cfg)
+        p0, _ = init()
+        m0 = plan.place(init()[0], pspec)
+        b0 = {k: v[0] for k, v in batches[0].items()}
+        mb0 = {k: v[0] for k, v in plan.place(batches[0], bspec).items()}
+
+        def on_mesh():
+            with policy.activate(mesh):
+                loss_fn(m0, mb0)
+
+        fail(f"(a) the mesh's training differs from the plain run: losses {mlosses} against "
+             f"{losses}, parameters {bad}; first differing operation of step 1's loss: "
+             f"{op_at_fault(lambda: loss_fn(p0, b0), on_mesh)}")
+    # step 1's fp32 gradients, for (c)
+    p1, _ = init()
+    mbs = ([{k: v[i] for k, v in batches[0].items()}] for i in range(TRAIN_MB))
+    _, grads = accumulate(make_loss_fn(cfg), p1, mbs)
+    res = dict(layers=cfg.n_layers, d_model=cfg.d_model, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               microbatches=TRAIN_MB, steps=PAR_STEPS, losses=losses, bitwise=True,
+               plain_step_s=list(plain_steps), mesh_step_s=list(mesh_steps),
+               plain_steady_s=steady["plain"], mesh_steady_s=steady["mesh"],
+               mesh_overhead_s=steady["mesh"] - steady["plain"], mesh=str(mesh), card=card)
+    print(f"(a) smollm-360m ({cfg.n_layers} layers, d_model {cfg.d_model}), {PAR_STEPS} steps "
+          f"at batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches on {mesh} "
+          f"(plan, policy, accum_spec) against no mesh: losses and "
+          f"{len(topt.tree_leaves(params))} parameter leaves bitwise equal (losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}); host s a step "
+          f"{', '.join(f'{x:.3f}' for x in plain_steps)} plain, "
+          f"{', '.join(f'{x:.3f}' for x in mesh_steps)} on the mesh; after the first: "
+          f"{steady['plain']:.3f} plain, {steady['mesh']:.3f} on the mesh, "
+          f"{steady['mesh'] - steady['plain']:+.3f} s a step for the mesh ({card})", flush=True)
+    return res, params, mparams, grads
+
+
+def par_one_step(name: str, make_params, mesh, plan, totals: dict) -> dict:
+    """(b): one training step's gradients of ``name`` at published widths,
+    PAR_ONE_STEP_LAYERS layers, batch ONE_STEP_BATCH x ONE_STEP_SEQ, with
+    no mesh and on the mesh: bitwise; the scan and WKV-6 launched on the
+    mesh (counts set to 0 just before)."""
+    from repro_torch.parallel import policy
+    from repro_torch.parallel.sharding import P
+    from repro_torch.train.loop import value_and_grad
+
+    cfg = dataclasses.replace(get(name), n_layers=PAR_ONE_STEP_LAYERS)
+    model = build(cfg)
+    params = make_params(cfg)
+    b = batch_at(DataConfig(vocab=cfg.vocab, seq_len=ONE_STEP_SEQ,
+                            global_batch=ONE_STEP_BATCH), 0)
+    toks, labels = (torch.from_numpy(b[k]).to(DEV) for k in ("tokens", "labels"))
+
+    def loss_fn(p, t, l):
+        return model.loss(p, t, l)
+
+    loss, grads = value_and_grad(loss_fn, params, toks, labels)
+    mparams = plan.place(params, plan.param_spec(params))
+    mt, ml = (plan.place(x, P(plan.dp_axes, None)) for x in (toks, labels))
+    for n in WRAPPERS:
+        WRAPPERS[n].launches = 0
+    with policy.activate(mesh):
+        views = topt.tree_map(lambda p: p.detach().requires_grad_(), mparams)
+        mloss = model.loss(views, mt, ml)
+        fwd = {n: WRAPPERS[n].launches for n in ("linear_scan", "wkv6")}
+        mgrads = topt.tree_unflatten(params, torch.autograd.grad(
+            mloss, topt.tree_leaves(views), materialize_grads=True))
+    bwd = {n: WRAPPERS[n].launches - fwd[n] for n in fwd}
+    for n in WRAPPERS:
+        totals[n] += WRAPPERS[n].launches
+    if cfg.mixer == "rwkv6" and not fwd["wkv6"] > 0:
+        fail(f"(b) {name}: wkv6 was not launched in the mesh's forward")
+    if cfg.family == "hybrid" and not (fwd["linear_scan"] > 0 and bwd["linear_scan"] > 0):
+        fail(f"(b) {name}: linear_scan launches on the mesh forward {fwd['linear_scan']}, "
+             f"backward {bwd['linear_scan']}; both must rise")
+    bad = _bitwise_trees(grads, mgrads)
+    same_loss = torch.equal(loss, mloss.detach().full_tensor())
+    if bad or not same_loss:
+        fail(f"(b) {name}: the mesh's gradients differ from the plain step's: {bad}, loss "
+             f"equal {same_loss}")
+    print(f"(b) {name}: one step at {cfg.n_layers} layers, batch {ONE_STEP_BATCH} x "
+          f"{ONE_STEP_SEQ} on the mesh: loss and {len(bad) or len(topt.tree_leaves(grads))} "
+          f"gradient leaves bitwise the plain step's; launches forward {fwd}, backward {bwd}",
+          flush=True)
+    return dict(layers=cfg.n_layers, loss=float(loss), bitwise=True, launches_fwd=fwd,
+                launches_bwd=bwd)
+
+
+def par_compress(mesh, grads: dict, card: str) -> dict:
+    """(c): ``compressed_psum`` of (a)'s fp32 gradients, all leaves as one
+    vector, over the one-rank mesh's NCCL group: bitwise
+    ``quantize_roundtrip``; its card ms beside the bytes bound of its passes
+    and the plain ``all_reduce``'s ms."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.collectives import BLOCK, compressed_psum, quantize_roundtrip
+
+    flat = torch.cat([g.reshape(-1) for g in topt.tree_leaves(grads)])
+    got = compressed_psum(flat, mesh)
+    want = quantize_roundtrip(flat)
+    if not torch.equal(got, want):
+        fail(f"(c) compressed_psum differs from quantize_roundtrip at one rank: "
+             f"{float((got - want).abs().max()):.3e}")
+    n = flat.numel()
+    # read the fp32 vector, write the int8 payload and the fp32 scales
+    b_ms, b_by = bound_ms(4 * n + n + 4 * n / BLOCK, 0.0)
+    ms = time_ms(lambda: compressed_psum(flat, mesh), 10, 2)
+    group = mesh.get_group(0)
+    buf = flat.clone()
+    ar_ms = time_ms(lambda: dist.all_reduce(buf, group=group), 10, 2)
+    print(f"(c) compressed_psum of {n:,} fp32 gradient elements over {mesh}: bitwise "
+          f"quantize_roundtrip; {ms:.3f} ms (bound {b_ms:.3f} ms, {b_by}), plain all_reduce "
+          f"{ar_ms:.3f} ms ({card})", flush=True)
+    return dict(elements=n, bitwise=True, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                all_reduce_ms=ar_ms, card=card)
+
+
+def par_restore(plan, params: dict, mparams: dict) -> dict:
+    """(d): (a)'s final parameters with no mesh restore onto the mesh
+    (``shardings=``), and the mesh's restore with no mesh, bit for bit."""
+    d = tempfile.mkdtemp(prefix="par_ckpt_", dir=ROOT / "build")
+    try:
+        ckpt.save(d, 1, {"params": params})
+        placed, _ = ckpt.restore(d, {"params": params}, step=1,
+                                 shardings={"params": plan.shardings(plan.param_spec(params))})
+        onto = _bitwise_trees(params, placed["params"])
+        ckpt.save(d, 2, {"params": mparams})
+        back, _ = ckpt.restore(d, {"params": params}, step=2)
+        off = _bitwise_trees(back["params"], mparams)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if onto or off:
+        fail(f"(d) restore: onto the mesh {onto}, off the mesh {off} differ")
+    print(f"(d) a checkpoint with no mesh restored onto the mesh, and the mesh's with no "
+          f"mesh: {len(topt.tree_leaves(params))} leaves bitwise both ways", flush=True)
+    return dict(bitwise_onto=True, bitwise_off=True)
+
+
+def parallel_phase(totals: dict, results: dict, card: str) -> dict:
+    """Phase 15: the parallel layer on a one-rank NCCL mesh, with (e) the
+    dry run in a subprocess beside (a)-(d)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ShardingPlan
+
+    t0 = time.perf_counter()
+
+    def stamp(part):
+        print(f"[phase 15: {time.perf_counter() - t0:.1f} s] {part}", flush=True)
+
+    out_dir = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-360m",
+           "--shape", "decode_32k", "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        mesh = make_host_mesh("cuda")
+        plan = ShardingPlan(mesh)
+        res = {"mesh": str(mesh), "backend": dist.get_backend()}
+        stamp(f"(a) smollm-360m on {mesh} ({dist.get_backend()})")
+        res["train"], params, mparams, grads = par_train(mesh, plan, card)
+        stamp("(b) one step each of recurrentgemma-2b and rwkv6-1.6b")
+        res["one_step"] = {
+            "recurrentgemma-2b": par_one_step("recurrentgemma-2b", rg_params, mesh, plan, totals),
+            "rwkv6-1.6b": par_one_step("rwkv6-1.6b", rwkv_params, mesh, plan, totals),
+        }
+        for n in ("linear_scan", "wkv6"):
+            results.setdefault(n, {})["parallel_launches"] = sum(
+                r["launches_fwd"][n] + r["launches_bwd"][n] for r in res["one_step"].values())
+        stamp("(c) compressed_psum")
+        res["compress"] = par_compress(mesh, grads, card)
+        stamp("(d) restore(shardings=)")
+        res["restore"] = par_restore(plan, params, mparams)
+        del params, mparams, grads
+        stamp("(e) waiting for the dry run")
+        out, err = dry.communicate(timeout=300)
+        path = Path(out_dir) / "smollm-360m__decode_32k__16x16.json"
+        rec = json.loads(path.read_text()) if path.exists() else None
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    peak = rec["memory"]["peak_estimate_bytes"] if rec else None
+    if dry.returncode != 0 or rec is None or not peak < hw.HBM_BYTES:
+        fail(f"(e) dry run: exit {dry.returncode}, peak {peak}\n{out[-2000:]}\n{err[-2000:]}")
+    res["dryrun"] = {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices", "compile_s",
+                                         "memory", "cost_per_device",
+                                         "collective_bytes_per_device", "torch")}
+    print(f"(e) python -m repro_torch.launch.dryrun --arch smollm-360m --shape decode_32k: exit "
+          f"0; 256 fake ranks, peak {peak / 2**30:.2f} GiB a device (< 80 GB), "
+          f"{rec['cost_per_device']['flops']:.3e} flops and "
+          f"{rec['collective_bytes_per_device']['total']:.3e} collective bytes a device, "
+          f"trace {rec['compile_s']} s, torch {rec['torch']}", flush=True)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"phase 15: {res['seconds']:.1f} s", flush=True)
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -4250,6 +4589,15 @@ def main() -> None:
         print(json.dumps({"zoo": zoo, "launches": totals,
                           "decode_d240_global": {k: v for k, v in results.items()
                                                  if k.endswith("_d240_global")}}))
+        return
+    if sys.argv[1:] == ["--parallel"]:
+        # the parallel layer alone: phase 15
+        banner("the parallel layer on a one-rank mesh")
+        totals = {n: 0 for n in WRAPPERS}
+        par = parallel_phase(totals, results, card)
+        print(f"done in {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"parallel": par, "launches": totals}))
         return
     if sys.argv[1:] == ["--train"]:
         # training alone: phase 14
@@ -4370,6 +4718,9 @@ def main() -> None:
     banner("training at full width")
     trained = train_phase(totals, results, card)
 
+    banner("the parallel layer on a one-rank mesh")
+    par = parallel_phase(totals, results, card)
+
     banner("reference check")
     check_decode_step(cfg, params)
 
@@ -4381,7 +4732,7 @@ def main() -> None:
              serve=runs, decode_profile=prof, sdc=sdc, sched=sched, recover=recover,
              autotune=plans, conv=convs,
              rwkv=rwkv,
-             recurrentgemma=rgemma, zoo=zoo, train=trained,
+             recurrentgemma=rgemma, zoo=zoo, train=trained, parallel=par,
              seconds=time.perf_counter() - t_start),
         indent=1))
     kernels = [
@@ -4390,7 +4741,8 @@ def main() -> None:
              plain_ms=results[n]["plain_ms"], bound_ms=results[n]["bound_ms"],
              bound_by=results[n]["bound_by"], library_ms=results[n]["library_ms"],
              **{k: results[n][k] for k in ("train_launches", "train_ms", "train_plain_ms",
-                                           "train_bound_ms", "train_bound_by")
+                                           "train_bound_ms", "train_bound_by",
+                                           "parallel_launches")
                 if k in results[n]})
         for n in WRAPPERS
     ]

@@ -41,7 +41,7 @@ def _bias_block(
     qp = q_pos.to(torch.int32)
     kp = k_pos.to(torch.int32)
     diff = qp[..., :, None] - kp[..., None, :]
-    ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    ok = torch.ones_like(diff, dtype=torch.bool)
     if causal:
         ok &= diff >= 0
     if window is not None:

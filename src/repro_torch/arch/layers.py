@@ -14,11 +14,15 @@ functions return the same cache dict they were given.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.policy import (
+    attend_local, flatten, gathered, local_call, shard, unflatten, whole, write_slots,
+)
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -113,7 +117,9 @@ def _mm(
 ) -> torch.Tensor:
     """``x @ w`` (or ``x @ w.T`` with ``trans_b``) through the dispatched
     GEMM.  The transposed form serves the tied unembedding without copying
-    the (vocab, d_model) table."""
+    the (vocab, d_model) table.  On a mesh an FSDP weight is gathered over
+    the data axes first (``policy.gathered``)."""
+    w = gathered(w)
     if dispatch.trace is not None:
         return dispatch.trace.mm(x, w, dispatch.matmul, trans_b=trans_b)
     if dispatch.matmul == "pallas":
@@ -204,9 +210,9 @@ def multihead_attention(
     Tk = src.shape[1]
     dev = x.device
 
-    q = _mm(x, params["wq"], dispatch).reshape(B, Tq, h, hd)
-    k = _mm(src, params["wk"], dispatch).reshape(B, Tk, kv, hd)
-    v = _mm(src, params["wv"], dispatch).reshape(B, Tk, kv, hd)
+    q = unflatten(shard(_mm(x, params["wq"], dispatch), "batch", "seq", "heads"), -1, (h, hd))
+    k = unflatten(shard(_mm(src, params["wk"], dispatch), "batch", "seq", "kv_heads"), -1, (kv, hd))
+    v = unflatten(shard(_mm(src, params["wv"], dispatch), "batch", "seq", "kv_heads"), -1, (kv, hd))
 
     ar = torch.arange(Tq, dtype=torch.int32, device=dev)
     if positions is None:
@@ -263,10 +269,9 @@ def multihead_attention(
             k_ins, v_ins, p_ins = k[:, -size:], v[:, -size:], p_ins[:, -size:]
         # ring invariant: slot(pos) = pos % size, independently per row
         slots = (p_ins % size).long()
-        rows = torch.arange(B, device=dev)[:, None]
-        cache["k"][rows, slots] = k_ins.to(cache["k"].dtype)
-        cache["v"][rows, slots] = v_ins.to(cache["v"].dtype)
-        cache["pos"][rows, slots] = p_ins.to(torch.int32)
+        write_slots(slots, ((cache["k"], k_ins.to(cache["k"].dtype)),
+                            (cache["v"], v_ins.to(cache["v"].dtype)),
+                            (cache["pos"], p_ins.to(torch.int32))))
         cache["len"].add_(Tq)
         k, v, k_pos = cache["k"], cache["v"], cache["pos"]
         # ragged flash-decoding: one query per slot attends over live slots
@@ -278,15 +283,15 @@ def multihead_attention(
             if ragged_ok:
                 decode_lengths = torch.clamp(cache["len"], max=size)
 
-    qg = q.reshape(B, Tq, kv, g, hd)
+    qg = unflatten(q, 2, (kv, g))
     skip_ok = cfg.causal_skip and kv_x is None and cache is None
-    ctx = attend(
-        qg, k, v, q_pos=positions, k_pos=k_pos, causal=causal,
+    ctx = attend_local(
+        attend, qg, k, v, q_pos=positions, k_pos=k_pos, causal=causal,
         window=window, causal_skip=skip_ok,
         decode_lengths=decode_lengths, decode_impl=dispatch.attention,
         decode_block=dispatch.decode_block, q_block=dispatch.q_block,
-    ).reshape(B, Tq, h * hd)
-    return _mm(ctx, params["wo"], dispatch), cache
+    )
+    return _mm(flatten(ctx, 2), params["wo"], dispatch), cache
 
 
 # -------------------------------------------------------------------- MLPs --
@@ -307,12 +312,13 @@ def mlp_init(generator, cfg: ModelConfig, device=None, lead=()) -> dict:
 def mlp(
     params: dict, cfg: ModelConfig, x: torch.Tensor, dispatch: Dispatch = PLAIN
 ) -> torch.Tensor:
-    h = _mm(x, params["w_in"], dispatch)
+    h = shard(_mm(x, params["w_in"], dispatch), "batch", "seq", "ff")
     if cfg.mlp_act == "swiglu":
-        h = torch.nn.functional.silu(_mm(x, params["w_gate"], dispatch)) * h
+        h = torch.nn.functional.silu(
+            shard(_mm(x, params["w_gate"], dispatch), "batch", "seq", "ff")) * h
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
-    return _mm(h, params["w_out"], dispatch)
+    return shard(_mm(h, params["w_out"], dispatch), "batch", "seq", "embed")
 
 
 # -------------------------------------------------------------- embeddings --
@@ -327,19 +333,63 @@ def embedding_init(generator, cfg: ModelConfig, device=None) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens.long()]
+    # the rows themselves.  On a mesh the table is gathered whole first:
+    # DTensor's sharded row lookups (a vocab-sharded gather's masked partial,
+    # an indexed read's backward write) fail in some torch versions
+    return torch.nn.functional.embedding(tokens.long(), whole(params["tok"]))
 
 
 def unembed(params: dict, x: torch.Tensor, dispatch: Dispatch = PLAIN) -> torch.Tensor:
     if "unembed" in params:
-        return _mm(x, params["unembed"], dispatch)
-    return _mm(x, params["tok"], dispatch, trans_b=True)
+        out = _mm(x, params["unembed"], dispatch)
+    else:
+        out = _mm(x, params["tok"], dispatch, trans_b=True)
+    return shard(out, *("batch", "seq", "vocab")[-out.ndim:])
+
+
+def _ce_terms_on_mesh(lf, labels):
+    """(logz, ll) of :func:`cross_entropy`, each (B, T, 1), for DTensor
+    logits (B, T, V): each rank takes the log-sum-exp and the label's logit
+    over its own rows and slice of the vocabulary on local tensors.  The
+    slices' log-sum-exps, (B, T, slices), are combined by one more; the
+    label's logit is a partial sum over the slices.  (DTensor's own gather
+    on vocabulary-split logits builds its backward's zeros at the whole
+    (B, T, V) on every rank.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = lf.device_mesh
+    pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in lf.placements]
+    split = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(2))
+    if lf.shape[-1] % split:
+        pl = [Replicate() if p == Shard(2) else p for p in pl]
+    # this rank's first vocabulary entry (shards nest left to right)
+    coord, width, v0 = mesh.get_coordinate(), lf.shape[-1], 0
+    for i, p in enumerate(pl):
+        if p == Shard(2):
+            width //= mesh.size(i)
+            v0 += coord[i] * width
+
+    def terms(lf, labels):
+        lse = torch.logsumexp(lf, dim=-1, keepdim=True)
+        idx = torch.clamp(labels, min=0).long()[..., None] - v0
+        inside = (idx >= 0) & (idx < width)
+        return lse, torch.where(inside, torch.gather(lf, -1, idx.clamp(0, width - 1)), 0.0)
+
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    lse, ll = local_call(terms, [lf, labels], [pl, rows],
+                         (pl, [Partial() if p == Shard(2) else p for p in pl]))
+    return torch.logsumexp(lse, dim=-1, keepdim=True), ll
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean next-token CE in fp32; labels < 0 are masked out."""
+    from torch.distributed.tensor import DTensor
+
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
-    mask = (labels >= 0).float()
+    if isinstance(lf, DTensor):
+        logz, ll = _ce_terms_on_mesh(lf, labels)
+    else:
+        logz = torch.logsumexp(lf, dim=-1, keepdim=True)
+        ll = torch.gather(lf, -1, torch.clamp(labels, min=0).long()[..., None])
+    mask = (labels >= 0).float()[..., None]
     return torch.sum((logz - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)

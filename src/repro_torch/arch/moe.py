@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.arch import layers as L
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.policy import experts_local, gather_rows, shard
 
 
 def moe_init(generator, cfg: ModelConfig, device=None, lead=()) -> dict:
@@ -90,13 +91,15 @@ def _filled(counts: torch.Tensor, C: int) -> torch.Tensor:
 
 def _expert_ffn(params: dict, cfg: ModelConfig, de: torch.Tensor) -> torch.Tensor:
     """(B, E, C, D) -> (B, E, C, D) through every expert's FFN."""
-    h = torch.einsum("becd,edf->becf", de, params["w_in"])
+    de = shard(de, "batch", "expert", None, "embed")
+    h = shard(torch.einsum("becd,edf->becf", de, params["w_in"]), "batch", "expert", None, "ff")
     if cfg.mlp_act == "swiglu":
         g = torch.einsum("becd,edf->becf", de, params["w_gate"])
-        h = torch.nn.functional.silu(g) * h
+        h = torch.nn.functional.silu(shard(g, "batch", "expert", None, "ff")) * h
     else:
         h = torch.nn.functional.gelu(h, approximate="tanh")
-    return torch.einsum("becf,efd->becd", h, params["w_out"])
+    return shard(torch.einsum("becf,efd->becd", h, params["w_out"]),
+                 "batch", "expert", None, "embed")
 
 
 def _moe_rows(params: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -106,6 +109,9 @@ def _moe_rows(params: dict, cfg: ModelConfig, x: torch.Tensor):
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     SK, C = S * K, capacity(cfg, S)
     dev = x.device
+    # on a mesh, routing's integer counts and ranks need whole rows: a
+    # partial sum of them is no count
+    x = shard(x, "batch", "seq", "embed")
     probs, gate, ids = route(params, cfg, x)
 
     flat_e = ids.reshape(B, SK)
@@ -118,9 +124,9 @@ def _moe_rows(params: dict, cfg: ModelConfig, x: torch.Tensor):
     src = torch.clamp(starts[..., None] + torch.arange(C, device=dev), max=SK - 1)
     src = src.reshape(B, E * C)
     token = torch.gather(sort_idx, 1, src) // K                             # (B, E*C)
-    xs = torch.gather(x, 1, token[..., None].expand(B, E * C, D))
+    xs = gather_rows(x, 1, token[..., None].expand(B, E * C, D))
     de = torch.where(filled.reshape(B, E * C, 1), xs, torch.zeros((), dtype=x.dtype, device=dev))
-    eo = _expert_ffn(params, cfg, de.reshape(B, E, C, D)).reshape(B, E * C, D)
+    eo = experts_local(_expert_ffn, params, cfg, de.reshape(B, E, C, D)).reshape(B, E * C, D)
 
     # combine: each assignment's rank in its expert, in (s, k) order
     rank_sorted = torch.arange(SK, device=dev)[None] - torch.gather(starts, 1, flat_e.gather(1, sort_idx))
@@ -130,7 +136,7 @@ def _moe_rows(params: dict, cfg: ModelConfig, x: torch.Tensor):
     # the K contributions of a token in ascending expert order
     order = torch.argsort(ids, dim=-1)
     slot, w = torch.gather(slot, 2, order), torch.gather(w, 2, order)
-    got = torch.gather(eo, 1, slot.reshape(B, SK, 1).expand(B, SK, D)).reshape(B, S, K, D)
+    got = gather_rows(eo, 1, slot.reshape(B, SK, 1).expand(B, SK, D)).reshape(B, S, K, D)
     out = got[:, :, 0].float() * w[..., 0, None]
     for k in range(1, K):
         out = out + got[:, :, k].float() * w[..., k, None]

@@ -46,6 +46,7 @@ from repro_torch.arch import moe as M
 from repro_torch.arch import rglru as G
 from repro_torch.arch import rwkv as R
 from repro_torch.configs.base import Family, Mixer, ModelConfig
+from repro_torch.parallel.policy import gather_dim
 
 GLOBAL_WINDOW = 2**30  # "window" that never masks = global attention
 
@@ -167,7 +168,9 @@ def _unstack(tree, n: int) -> list:
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    return list(torch.unbind(tree, 0))
+    # a DTensor cannot be unbound along a sharded dimension: the plan
+    # shards a layer axis where a rule's spec reaches it and the layers divide
+    return list(torch.unbind(gather_dim(tree, 0), 0))
 
 
 @dataclasses.dataclass(frozen=True)

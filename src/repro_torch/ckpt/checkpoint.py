@@ -18,10 +18,15 @@ bits and the manifest names its dtype as the reference spells it
 ``AsyncCheckpointer.save_async`` copies every leaf to the host
 synchronously (so training may update its tensors in place at once), then
 writes on a background thread into a temporary directory that one rename
-publishes: a crash mid-save never corrupts the newest checkpoint.  The
-reference's elastic restore onto another mesh (``restore(shardings=)``)
-waits for the port's parallel modules; here a leaf is restored onto the
-device and dtype of the leaf it replaces.
+publishes: a crash mid-save never corrupts the newest checkpoint.
+
+On a mesh, a DTensor leaf is gathered whole (``full_tensor()``, a
+collective every rank joins) before its host copy, and only rank 0 writes.
+``restore`` puts a leaf onto the device and dtype of the leaf it replaces,
+or, with ``shardings=`` (elastic restore), onto a mesh: each leaf of that
+tree is a ``(mesh, placements)`` pair (``ShardingPlan.shardings``).  A
+checkpoint written with no mesh restores onto a mesh, and the other way
+round, bit for bit.
 """
 
 from __future__ import annotations
@@ -71,9 +76,23 @@ def _paths(tree: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
     return [(prefix[:-1], tree)]
 
 
+def _whole(leaf: torch.Tensor) -> torch.Tensor:
+    """A DTensor's full tensor (every rank gathers it), else the leaf."""
+    from torch.distributed.tensor import DTensor
+
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _writer() -> bool:
+    """Only rank 0 of an open process group writes."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _flatten(tree: Any) -> dict[str, torch.Tensor]:
     """Host copies of the leaves, keyed by path."""
-    return {k: leaf.detach().to("cpu", copy=True) for k, leaf in _paths(tree)}
+    return {k: _whole(leaf.detach()).to("cpu", copy=True) for k, leaf in _paths(tree)}
 
 
 def _write(directory: str, step: int, flat: dict[str, torch.Tensor],
@@ -103,8 +122,12 @@ def save(
     extra: dict | None = None,
     host_id: int = 0,
 ) -> str:
-    """Synchronous checkpoint write; returns the final path."""
-    return _write(directory, step, _flatten(tree), extra, host_id)
+    """Synchronous checkpoint write; returns the final path (on every
+    rank; rank 0 writes)."""
+    flat = _flatten(tree)
+    if not _writer():
+        return os.path.join(directory, f"step_{step:08d}")
+    return _write(directory, step, flat, extra, host_id)
 
 
 class AsyncCheckpointer:
@@ -125,6 +148,8 @@ class AsyncCheckpointer:
         self.wait()
         # snapshot now (device -> host) so training can update in place
         flat = _flatten(tree)
+        if not _writer():
+            return
 
         def _run():
             _write(self.directory, step, flat, extra)
@@ -156,11 +181,16 @@ def latest_step(directory: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, like: Any, step: int | None = None) -> tuple[Any, dict]:
+def restore(directory: str, like: Any, step: int | None = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` (the newest step unless
-    ``step`` is given): every leaf onto the device and into the dtype of
-    the leaf of ``like`` it replaces.  Returns (tree, the manifest's
-    ``extra``)."""
+    ``step`` is given), every leaf in the dtype of the leaf of ``like`` it
+    replaces: onto that leaf's device, or with ``shardings`` (a tree like
+    ``like`` of ``(mesh, placements)`` pairs) as a DTensor on that mesh,
+    each rank keeping its slice (elastic re-shard onto the current mesh).
+    Returns (tree, the manifest's ``extra``)."""
+    from torch.distributed.tensor import distribute_tensor
+
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -168,16 +198,18 @@ def restore(directory: str, like: Any, step: int | None = None) -> tuple[Any, di
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+
     with np.load(os.path.join(path, "shard_0.npz")) as data:
-        loaded = {
-            key: _from_savable(data[key], manifest["leaves"][key][1]).to(
-                device=leaf.device, dtype=leaf.dtype)
-            for key, leaf in _paths(like)
-        }
+        def rebuild(tree, sharding, prefix=""):
+            if isinstance(tree, dict):
+                return {k: rebuild(v, None if sharding is None else sharding[k],
+                                   f"{prefix}{k}/") for k, v in tree.items()}
+            key = prefix[:-1]
+            t = _from_savable(data[key], manifest["leaves"][key][1])
+            if sharding is None:
+                return t.to(device=tree.device, dtype=tree.dtype)
+            mesh, pl = sharding
+            return distribute_tensor(t.to(dtype=tree.dtype), mesh, pl, src_data_rank=None)
 
-    def rebuild(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
-        return loaded[prefix[:-1]]
-
-    return rebuild(like), manifest["extra"]
+        out = rebuild(like, shardings)
+    return out, manifest["extra"]

@@ -210,3 +210,79 @@ def _search_matmul_tiles(
     while t.vmem_bytes(dtype_bytes) > vmem_bytes and t.bn > LANES:
         t = MatmulTiles(bm=t.bm, bn=_half(t.bn, LANES), bk=t.bk)
     return t
+
+
+# --------------------------------------------------------------- mesh scale --
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshDataflow:
+    """Assignment of model loops to mesh axes = pod-scale spatial unrolling.
+
+    axes: mesh axis name -> tuple of (loop name, shard factor), nearest-first
+    (replication at pod scale, e.g. ('batch', 8)('seq', 2) on 'data').
+    """
+
+    axes: tuple[tuple[str, tuple[tuple[str, int], ...]], ...]
+
+    def label(self) -> str:
+        return " | ".join(
+            f"{ax}:" + ("".join(d for d, _ in loops) or "-")
+            for ax, loops in self.axes
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshHardware:
+    """One chip of a mesh as the pod-scale roofline sees it: its compute
+    peak, HBM rate, and the links a collective's bytes leave it by."""
+
+    name: str
+    peak_flops: float
+    hbm_bytes_per_s: float
+    link_bytes_per_s: float
+    links: int
+
+    @classmethod
+    def h100(cls) -> "MeshHardware":
+        """The default: the H100 (``repro_torch/hw.py``), dense bf16, HBM3,
+        NVLink 4's 18 links at 25 GB/s each way."""
+        from repro_torch import hw
+
+        return cls(name="h100-sxm", peak_flops=hw.BF16_FLOPS_PER_S,
+                   hbm_bytes_per_s=hw.HBM_BYTES_PER_S,
+                   link_bytes_per_s=hw.NVLINK_BYTES_PER_S_PER_LINK, links=hw.NVLINK_LINKS)
+
+    @classmethod
+    def tpu_v5e(cls) -> "MeshHardware":
+        """The reference's v5e constants (197 TFLOP/s, 819 GB/s, 50 GB/s a
+        link over 2 ICI links).  Not this card."""
+        return cls(name="tpu-v5e", peak_flops=en.TPU_PEAK_FLOPS_BF16,
+                   hbm_bytes_per_s=en.TPU_HBM_BYTES_PER_S,
+                   link_bytes_per_s=en.TPU_ICI_BYTES_PER_S_PER_LINK, links=2)
+
+
+def mesh_dataflow_cost(
+    *,
+    flops: float,
+    hbm_bytes: float,
+    collective_bytes: float,
+    n_chips: int,
+    ici_links: int | None = None,
+    hardware: MeshHardware | None = None,
+) -> dict[str, float]:
+    """The paper's E = sum acc_i * e_i at pod scale, in seconds: the three
+    roofline terms (compute / memory / collective) on ``hardware`` (the
+    H100 unless given); ``ici_links`` overrides its link count."""
+    hardware = hardware or MeshHardware.h100()
+    links = hardware.links if ici_links is None else ici_links
+    return {
+        "compute_s": flops / (n_chips * hardware.peak_flops),
+        "memory_s": hbm_bytes / (n_chips * hardware.hbm_bytes_per_s),
+        "collective_s": collective_bytes
+        / (n_chips * links * hardware.link_bytes_per_s),
+    }
+
+
+def dominant_term(cost: dict[str, float]) -> str:
+    return max(cost, key=lambda k: cost[k])

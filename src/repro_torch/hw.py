@@ -20,6 +20,10 @@ REGISTERS_PER_SM = 65_536           # 32-bit registers
 HBM_BYTES_PER_S = 3.35e12           # HBM3
 HBM_BYTES = 80 * 1024**3
 BF16_FLOPS_PER_S = 989e12           # dense bf16 tensor-core peak
+# NVLink 4 between the cards of one host: 18 links of 25 GB/s each way
+# (the data sheet's 900 GB/s is both ways over all 18 links)
+NVLINK_LINKS = 18
+NVLINK_BYTES_PER_S_PER_LINK = 25e9
 FP32_FLOPS_PER_S = 66.9e12          # fp32 on the CUDA cores (no tensor cores)
 # The SM clock the data sheet's peaks assume: 989 TFLOP/s of dense bf16 is
 # 132 SMs x 4 tensor cores x 1024 flops a clock x 1.83 GHz.  It sets only

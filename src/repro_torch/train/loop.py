@@ -58,14 +58,18 @@ def value_and_grad(loss_fn: Callable, params: dict, *args) -> tuple[torch.Tensor
     return loss.detach(), optim.tree_unflatten(params, grads)
 
 
-def accumulate(loss_fn: Callable, params: dict, microbatches: Iterable[tuple]):
+def accumulate(loss_fn: Callable, params: dict, microbatches: Iterable[tuple],
+               constrain: Callable | None = None):
     """Mean loss and gradients over ``microbatches`` (argument tuples of
     ``loss_fn`` after the parameters), one backward pass at a time, the
     gradients summed in fp32 as the reference's microbatch scan sums
-    them."""
+    them.  ``constrain`` (a tree to a tree) lays out each microbatch's
+    gradients before they join the sum, and so the sum itself."""
     gsum, lsum, n = None, 0.0, 0
     for args in microbatches:
         loss, g = value_and_grad(loss_fn, params, *args)
+        if constrain is not None:
+            g = constrain(g)
         if gsum is None:
             gsum = optim.tree_map(lambda x: x.float(), g)
         else:

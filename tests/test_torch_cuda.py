@@ -1665,3 +1665,81 @@ def test_training_checkpoint_round_trip_from_the_card(cuda, tmp_path):
         for a, b in zip(optim.tree_leaves(got), optim.tree_leaves(tree)):
             assert a.device.type == dev.type and a.dtype == b.dtype
             assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL mesh (``launch/mesh.make_host_mesh``), closed after
+    the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh("cuda")
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear_scan", "wkv6"])
+@pytest.mark.parametrize("sharded", [False, True])
+def test_recurrence_ops_on_dtensors_of_a_one_rank_mesh(nccl_mesh, kind, sharded):
+    """The two recurrences' custom ops on CUDA DTensors of a one-rank mesh
+    (replicated, or laid out by rows as the batch is): the kernels launch
+    on the local tensors, forward and gradients bitwise the plain tensors'
+    path."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    if kind == "linear_scan":
+        B, T, D = 2, 40, 96
+        args = (torch.rand((B, T, D), generator=g, device=dev) * 0.5 + 0.5,
+                torch.randn((B, T, D), generator=g, device=dev),
+                torch.randn((B, D), generator=g, device=dev))
+        fn, counter, row_dims = ls_ops.linear_scan, ls_mod.linear_scan_cuda, (0, 0, 0)
+    else:
+        B, H, T, D = 2, 4, 24, 64
+        r, k, v = (torch.randn((B, T, H, D), generator=g, device=dev).transpose(1, 2)
+                   for _ in range(3))
+        w = (torch.rand((B, T, H, D), generator=g, device=dev) * 0.7 + 0.29).transpose(1, 2)
+        args = (r, k, v, w, 0.5 * torch.randn((H, D), generator=g, device=dev),
+                torch.randn((B, H, D, D), generator=g, device=dev))
+        fn, counter, row_dims = ls_ops.wkv6, ls_mod.wkv6_cuda, (0, 0, 0, 0, None, 0)
+    results = []
+    for on_mesh in (False, True):
+        ins = [a.detach().clone() for a in args]
+        if on_mesh:
+            ins = [distribute_tensor(a, nccl_mesh, [Shard(d) if sharded and d is not None
+                                                    else Replicate(), Replicate()])
+                   for a, d in zip(ins, row_dims)]
+        ins = [a.requires_grad_() for a in ins]
+        before = counter.launches
+        outs = fn(*ins)
+        fwd = counter.launches - before
+        up = [torch.randn(o.shape, generator=torch.Generator(device=dev).manual_seed(i),
+                          device=dev) for i, o in enumerate(outs)]
+        if on_mesh:
+            up = [distribute_tensor(u, nccl_mesh, list(o.placements)) for u, o in zip(up, outs)]
+        grads = torch.autograd.grad(outs, ins, up)
+        as_plain = [t.full_tensor() if isinstance(t, DTensor) else t for t in (*outs, *grads)]
+        results.append((as_plain, fwd))
+    (want, fwd_plain), (got, fwd_mesh) = results
+    assert fwd_plain == fwd_mesh == 1  # the kernel, not its plain version
+    for a, b in zip(got, want):
+        assert torch.equal(a.detach(), b.detach())
+
+
+@pytest.mark.cuda
+def test_compressed_psum_over_nccl_at_one_rank(nccl_mesh):
+    """``compressed_psum`` over the one-rank NCCL group is the int8 round
+    trip itself, bit for bit."""
+    from repro_torch.parallel.collectives import compressed_psum, quantize_roundtrip
+
+    x = torch.randn((1000, 77), generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda") * 3
+    assert torch.equal(compressed_psum(x, nccl_mesh), quantize_roundtrip(x))
+    assert torch.equal(compressed_psum(x.bfloat16(), nccl_mesh),
+                       quantize_roundtrip(x.bfloat16()))
