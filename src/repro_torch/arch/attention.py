@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from repro_torch import obs
+
 NEG_INF = -1e30
 # pieces of (one row, q_block queries) that one call of attend_pieces
 # computes together; short calls are filled up with copies of a piece
@@ -192,6 +194,7 @@ def attend_pieces(
     return out[:, :Tq]
 
 
+@obs.region("attention")
 def attend(
     q: torch.Tensor,
     k: torch.Tensor,

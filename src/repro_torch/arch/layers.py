@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.parallel.policy import (
     attend_local, flatten, gathered, local_call, shard, unflatten, whole, write_slots,
@@ -82,6 +83,7 @@ def rmsnorm_init(d: int, device=None) -> dict:
     return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
+@obs.region("norm")
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -182,6 +184,29 @@ def init_kv_cache(
     }
 
 
+@obs.region("attn_proj")
+def _project_qkv(
+    params: dict, cfg: ModelConfig, x: torch.Tensor, src: torch.Tensor,
+    q_pos: torch.Tensor, k_pos: torch.Tensor, use_rope: bool, dispatch: Dispatch,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The queries of ``x`` and the keys and values of ``src``, split into
+    heads, queries and keys rotated at their positions when ``use_rope``."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = unflatten(shard(_mm(x, params["wq"], dispatch), "batch", "seq", "heads"), -1, (h, hd))
+    k = unflatten(shard(_mm(src, params["wk"], dispatch), "batch", "seq", "kv_heads"), -1, (kv, hd))
+    v = unflatten(shard(_mm(src, params["wv"], dispatch), "batch", "seq", "kv_heads"), -1, (kv, hd))
+    if use_rope:
+        qc, qs = rope_angles(q_pos, hd, cfg.rope_theta)
+        q = apply_rope(q, qc, qs)
+        kc, ks_ = rope_angles(k_pos, hd, cfg.rope_theta)
+        k = apply_rope(k, kc, ks_)
+    return q, k, v
+
+
+# the output projection, the other half of the region
+_project_out = obs.region("attn_proj")(_mm)
+
+
 def multihead_attention(
     params: dict,
     cfg: ModelConfig,
@@ -210,20 +235,12 @@ def multihead_attention(
     Tk = src.shape[1]
     dev = x.device
 
-    q = unflatten(shard(_mm(x, params["wq"], dispatch), "batch", "seq", "heads"), -1, (h, hd))
-    k = unflatten(shard(_mm(src, params["wk"], dispatch), "batch", "seq", "kv_heads"), -1, (kv, hd))
-    v = unflatten(shard(_mm(src, params["wv"], dispatch), "batch", "seq", "kv_heads"), -1, (kv, hd))
-
     ar = torch.arange(Tq, dtype=torch.int32, device=dev)
     if positions is None:
         # per-row base: rows of a slot cache sit at different positions
         positions = cache["len"][:, None] + ar if cache is not None else ar
     k_pos = positions if kv_x is None else torch.arange(Tk, dtype=torch.int32, device=dev)
-    if use_rope:
-        qc, qs = rope_angles(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, qc, qs)
-        kc, ks_ = rope_angles(k_pos, hd, cfg.rope_theta)
-        k = apply_rope(k, kc, ks_)
+    q, k, v = _project_qkv(params, cfg, x, src, positions, k_pos, use_rope, dispatch)
 
     g = h // kv
     decode_lengths = None
@@ -291,7 +308,7 @@ def multihead_attention(
         decode_lengths=decode_lengths, decode_impl=dispatch.attention,
         decode_block=dispatch.decode_block, q_block=dispatch.q_block,
     )
-    return _mm(flatten(ctx, 2), params["wo"], dispatch), cache
+    return _project_out(flatten(ctx, 2), params["wo"], dispatch), cache
 
 
 # -------------------------------------------------------------------- MLPs --
@@ -309,6 +326,7 @@ def mlp_init(generator, cfg: ModelConfig, device=None, lead=()) -> dict:
     return p
 
 
+@obs.region("mlp")
 def mlp(
     params: dict, cfg: ModelConfig, x: torch.Tensor, dispatch: Dispatch = PLAIN
 ) -> torch.Tensor:
@@ -332,6 +350,7 @@ def embedding_init(generator, cfg: ModelConfig, device=None) -> dict:
     return p
 
 
+@obs.region("embed")
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     # the rows themselves.  On a mesh the table is gathered whole first:
     # DTensor's sharded row lookups (a vocab-sharded gather's masked partial,

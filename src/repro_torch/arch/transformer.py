@@ -41,6 +41,7 @@ import numpy as np
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import obs
 from repro_torch.arch import layers as L
 from repro_torch.arch import moe as M
 from repro_torch.arch import rglru as G
@@ -65,14 +66,27 @@ def remat_policy_of(cfg: ModelConfig):
     return None
 
 
+@obs.region("layer")
+def _layer(fn, *args):
+    """``fn(*args)``, a layer's (a hybrid group's) body."""
+    return fn(*args)
+
+
 def _remat(cfg: ModelConfig, remat: bool, fn, *args):
     """``fn(*args)``, rematerialised in the backward pass when ``remat``.
     The layers draw no random numbers, so no RNG state is kept."""
     if not remat:
-        return fn(*args)
+        return _layer(fn, *args)
     ctx = remat_policy_of(cfg)
     kw = {} if ctx is None else {"context_fn": ctx}
-    return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+    return _ckpt.checkpoint(_layer, fn, *args, use_reentrant=False, preserve_rng_state=False,
+                            **kw)
+
+
+@obs.region("head")
+def _loss_head(embed: dict, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy (fp32) of the unembedded ``x``."""
+    return L.cross_entropy(L.unembed(embed, x), labels)
 
 
 def _add_aux(total, aux):
@@ -393,7 +407,7 @@ class Model:
                  labels], dim=1)
         x, aux = self._backbone(params, x, None, None, L.PLAIN, remat=remat)
         x = L.rmsnorm(params["final_ln"], x, self.cfg.norm_eps)
-        ce = L.cross_entropy(L.unembed(params["embed"], x), labels)
+        ce = _loss_head(params["embed"], x, labels)
         return ce if aux is None else ce + 0.01 * aux
 
     # -------------------------------------------------------------- serve --

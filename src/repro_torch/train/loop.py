@@ -28,6 +28,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.arch.model_zoo import build
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
@@ -53,8 +54,10 @@ def value_and_grad(loss_fn: Callable, params: dict, *args) -> tuple[torch.Tensor
     ``loss_fn(params, *args)`` runs on detached views of the parameters, so
     the caller's tensors are neither marked nor given ``.grad``."""
     views = optim.tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss = loss_fn(views, *args)
-    grads = torch.autograd.grad(loss, optim.tree_leaves(views), materialize_grads=True)
+    with obs.phase("forward"):
+        loss = loss_fn(views, *args)
+    with obs.phase("backward"):
+        grads = torch.autograd.grad(loss, optim.tree_leaves(views), materialize_grads=True)
     return loss.detach(), optim.tree_unflatten(params, grads)
 
 
@@ -70,13 +73,15 @@ def accumulate(loss_fn: Callable, params: dict, microbatches: Iterable[tuple],
         loss, g = value_and_grad(loss_fn, params, *args)
         if constrain is not None:
             g = constrain(g)
-        if gsum is None:
-            gsum = optim.tree_map(lambda x: x.float(), g)
-        else:
-            optim.tree_map(lambda a, b: a.add_(b.float()), gsum, g)
-        lsum = lsum + loss
+        with obs.phase("grad_sum"):
+            if gsum is None:
+                gsum = optim.tree_map(lambda x: x.float(), g)
+            else:
+                optim.tree_map(lambda a, b: a.add_(b.float()), gsum, g)
+            lsum = lsum + loss
         n += 1
-    return lsum / n, optim.tree_map(lambda x: x.div_(n), gsum)
+    with obs.phase("grad_sum"):
+        return lsum / n, optim.tree_map(lambda x: x.div_(n), gsum)
 
 
 def make_train_step(model, tcfg: TrainConfig) -> Callable:

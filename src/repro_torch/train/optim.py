@@ -17,6 +17,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -107,24 +109,26 @@ def apply_updates(
 ) -> tuple[dict, dict, dict]:
     """One AdamW step, in place; returns (params, state, metrics), the
     objects it was given."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    step = state["step"] + 1
-    lr = lr_schedule(cfg, step)
-    b1, b2 = cfg.b1, cfg.b2
-    sf = step.float()
-    c1, c2 = 1 - b1**sf, 1 - b2**sf
+    with obs.phase("clip"):
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    with obs.phase("adamw"):
+        step = state["step"] + 1
+        lr = lr_schedule(cfg, step)
+        b1, b2 = cfg.b1, cfg.b2
+        sf = step.float()
+        c1, c2 = 1 - b1**sf, 1 - b2**sf
 
-    def upd(p, g, m, v):
-        gf = g.float()
-        m2 = b1 * m + (1 - b1) * gf
-        v2 = b2 * v + (1 - b2) * gf * gf
-        delta = (m2 / c1) / (torch.sqrt(v2 / c2) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
-        m.copy_(m2)
-        v.copy_(v2)
+        def upd(p, g, m, v):
+            gf = g.float()
+            m2 = b1 * m + (1 - b1) * gf
+            v2 = b2 * v + (1 - b2) * gf * gf
+            delta = (m2 / c1) / (torch.sqrt(v2 / c2) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_((p.float() - lr * delta).to(p.dtype))
+            m.copy_(m2)
+            v.copy_(v2)
 
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state["m"]), tree_leaves(state["v"])):
-        upd(p, g, m, v)
-    state["step"].copy_(step)
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state["m"]), tree_leaves(state["v"])):
+            upd(p, g, m, v)
+        state["step"].copy_(step)
     return params, state, {"grad_norm": gnorm, "lr": lr}
